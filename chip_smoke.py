@@ -12,15 +12,28 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      S = 33.  Time the kernel (CUDA events) at the six main-path shapes in
      float32 and at (512, 33) in float64, and the plain version at
      (512, 33) float32, and compute each shape's bound;
-  4. solve: the HMG-global quadrant r=7 p=4 configuration (17,551,967 DoFs,
-     float levels, Chebyshev degree 3, CG to rtol 1e-4) through api.run on
-     cuda:0 with 5 repetitions; checks convergence in 3 iterations, the
-     recomputed-residual guard, that every patch apply went through the
-     kernel, and a small double-precision solve on the card against the
-     same solve on the CPU (plain stencil path);
-  5. print each patch level's kernel time x launches per solve against its
-     bound, the kernels line, the card's name and power limit, and the
-     result line.
+  4. solve, each path through api.run on cuda:0 with the launch count set
+     to 0 just before it and read just after:
+     a. a small double-precision HMG-global solve on the card against the
+        same solve on the CPU (plain stencil path);
+     b. the main path: HMG-global quadrant r=7 p=4 (17,551,967 DoFs, float
+        levels, Chebyshev degree 3, CG to rtol 1e-4), 5 repetitions; checks
+        convergence in 3 iterations, the recomputed-residual guard, and that
+        every patch apply went through the kernel;
+     c. card against CPU, small: PMG and HPMG at r=3 p=4 in double (x to
+        1e-8), HMG-global and HPMG at r=3 p=2 in mixed and df32 (x to 1e-5),
+        equal iteration counts;
+     d. HPMG quadrant r=7 p=4 (10 levels), NumberType mixed, float levels,
+        5 repetitions: converged, guard, one iteration count in all 6
+        solves, launches as expected;
+     e. df32 on the hierarchy of d: within one iteration of d, x within
+        1e-5 relative of d's;
+     f. PMG quadrant r=5 p=4 mixed (3 levels, dense coarse solve on the
+        fine mesh at p=1): converged, launches as expected;
+  5. for every patch level of the b, d and f hierarchies: the kernel on the
+     level's own KS, MS and pscale against the plain version, its time,
+     launches per solve and bound; then the kernels line, the card's name
+     and power limit, and the result line.
 """
 
 from __future__ import annotations
@@ -56,16 +69,17 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bench_params(n_ref: int, degree: int, number: str, reps: int):
+def bench_params(n_ref: int, degree: int, number: str, reps: int,
+                 mg_type: str = "HMG-global", mg_number: str | None = None):
     from dealii_multigrid_tpu_torch.utils.params import RunParameters
 
     prm = RunParameters()
-    prm.type = "HMG-global"
+    prm.type = mg_type
     prm.geometry_type = "quadrant"
     prm.n_ref_global = n_ref
     prm.fe_degree_fine = degree
     prm.number_type = number
-    prm.mg_number_type = number
+    prm.mg_number_type = mg_number or number
     prm.mg_data.coarse_solver.type = "amg"
     prm.mg_data.smoother.degree = 3
     prm.mg_data.cg_normal.reltol = 1e-4
@@ -190,20 +204,106 @@ def check_kernel(dev: torch.device) -> dict:
     return measured
 
 
-def expected_launches(levels, result, prm) -> int:
-    """Stencil launches the main path implies: each vmult of a level with
-    patches launches once.  Eigenvalue estimation: eig_cg_n_iterations
-    vmults per level above the coarsest; each CG iteration: one fine vmult
-    plus one V-cycle of 2 * degree vmults per level above the coarsest
-    (degree - 1 in the pre-smoother, 1 residual, degree in the
-    post-smoother); the residual guard: one fine vmult; the RHS: one fine
-    vmult only with a Dirichlet lift (none for "Constant")."""
+def expected_launches(levels, iterations, prm, setup: bool = True) -> int:
+    """Stencil launches a solve path implies: each vmult of a level with
+    patches launches once.  Eigenvalue estimation (``setup``):
+    eig_cg_n_iterations vmults per level above the coarsest; each CG
+    iteration: one fine vmult (the mixed and df32 outer operator is the
+    fine level's float32 operator) plus one V-cycle of 2 * degree vmults per
+    level above the coarsest (degree - 1 in the pre-smoother, 1 residual,
+    degree in the post-smoother); the residual guard: one fine vmult; the
+    RHS: one fine vmult only with a Dirichlet lift (none for "Constant")."""
     P = sum(1 for lv in levels[1:] if lv.op.NP > 0)
     fine = 1 if levels[-1].op.NP > 0 else 0
     deg = prm.mg_data.smoother.degree
-    n = prm.mg_data.smoother.eig_cg_n_iterations * P
-    n += sum(result.solve_iterations) * (fine + 2 * deg * P)
+    n = prm.mg_data.smoother.eig_cg_n_iterations * P if setup else 0
+    n += sum(iterations) * (fine + 2 * deg * P)
     return n + fine
+
+
+def counted(fn):
+    """Run fn with the launch count set to 0 just before; (result, launches)."""
+    from dealii_multigrid_tpu_torch.ops import patch_stencil as ps
+
+    torch.cuda.synchronize()
+    ps.launches.reset()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, ps.launches.count
+
+
+def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def norm_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def check_solve(name: str, result, levels, prm, launches: int, n_it: int | None = None,
+                setup: bool = True) -> None:
+    """The checks every full-size path makes, and its line of numbers."""
+    expect = expected_launches(levels, result.solve_iterations, prm, setup)
+    its = result.solve_iterations
+    print(f"{name}: levels (degree, n_dofs, NP, S, band) "
+          f"{[(lv.degree, lv.dofh.n_dofs, lv.op.NP, lv.op.S, lv.op.band) for lv in levels]}",
+          flush=True)
+    print(f"{name}: solve iterations {its}; loop residual {result.residual_norm:.4e}, "
+          f"true residual {result.true_residual:.4e} (allowance {result.guard_threshold:.4e}); "
+          f"stencil launches {launches} (expected {expect})", flush=True)
+    check(result.converged, f"{name} did not converge")
+    check(len(set(its)) == 1, f"{name}: the solves took different iteration counts {its}")
+    if n_it is not None:
+        check(its[0] == n_it, f"{name}: expected {n_it} CG iterations, got {its}")
+    check(result.true_residual <= result.guard_threshold, f"{name}: true-residual guard failed")
+    check(launches > 0 and launches == expect, f"{name}: stencil launches {launches} != expected {expect}")
+    check("jax" not in sys.modules, "the port imported jax")
+    x = result.x
+    check(x.shape == (result.n_dofs,) and bool(torch.isfinite(x).all()),
+          f"{name}: the solution is not a finite vector of n_dofs values")
+
+
+def check_levels(name: str, levels, iterations: int, prm, card: str, rng) -> None:
+    """Each patch level's own KS, MS and pscale through the kernel against the
+    plain version (the level's dtype and float64), its time with CUDA events,
+    and launches per solve x time against the bound."""
+    from dealii_multigrid_tpu_torch.ops import patch_stencil as ps
+
+    deg = prm.mg_data.smoother.degree
+    total = 0.0
+    for l in range(len(levels) - 1, 0, -1):
+        op = levels[l].op
+        if op.NP == 0:
+            continue
+        for dtype in (op.dtype, torch.float64):
+            KS, MS, sc = (t.to(dtype).contiguous() for t in (op.KS, op.MS, op.pscale))
+            xp = torch.as_tensor(rng.standard_normal((op.NP, op.S**3)), dtype=dtype, device=op.device)
+            got = ps.patch_stencil(xp, KS, MS, sc, op.band)
+            ref = ps.patch_stencil_reference(xp, KS, MS, sc)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            rmax = float(ref.abs().max())
+            if dtype == torch.float32:
+                ok = bool(torch.all((got - ref).abs() <= F32_ATOL_REL * rmax + F32_RTOL * ref.abs()))
+            else:
+                ok = err <= F64_REL * rmax
+            tag = "f32" if dtype == torch.float32 else "f64"
+            print(f"{name} L{l} kernel check {tag} NP={op.NP} S={op.S} band={op.band}: "
+                  f"max_abs_err={err:.3e} max|ref|={rmax:.3e} ok={ok}", flush=True)
+            check(ok, f"{name} L{l}: the kernel disagrees with the plain version ({tag})")
+        KS, MS, sc = op.KS, op.MS, op.pscale
+        xp = torch.as_tensor(rng.standard_normal((op.NP, op.S**3)), dtype=op.dtype, device=op.device)
+        kern = lambda: ps.patch_stencil(xp, KS, MS, sc, op.band)  # noqa: E731
+        ms = min(time_ms(kern, TIMED_LAUNCHES), time_ms(kern, TIMED_LAUNCHES))
+        b_ms, b_by = bound(op.NP, op.S, KS, MS, op.dtype)
+        n = iterations * (2 * deg + (1 if l == len(levels) - 1 else 0))
+        total += n * ms
+        print(f"{name} L{l} p={levels[l].degree} NP={op.NP} S={op.S} band={op.band}: {n} launches "
+              f"per solve x {ms:.6f} ms = {n * ms:.4f} ms; bound {1e3 * b_ms:.2f} us ({b_by}), "
+              f"roofline share {b_ms / ms:.4f}; card {card}", flush=True)
+    print(f"{name}: stencil per solve {total:.4f} ms of kernel time; card {card}", flush=True)
 
 
 def main() -> int:
@@ -217,6 +317,8 @@ def main() -> int:
     dev = torch.device("cuda:0")
     from dealii_multigrid_tpu_torch import api
     from dealii_multigrid_tpu_torch.ops import patch_stencil as ps
+    from dealii_multigrid_tpu_torch.solvers import twofloat
+    from dealii_multigrid_tpu_torch.solvers.multigrid import PreconditionMG
 
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)} ({card})",
@@ -230,12 +332,13 @@ def main() -> int:
 
     # 3. kernel against the plain version
     measured = check_kernel(dev)
+    rng = np.random.default_rng(1)
 
     # 4a. small solve on the card against the same solve on the CPU
     small = bench_params(3, 2, "double", 1)
     res_gpu, _, _ = api.run(small, dev)
     res_cpu, _, _ = api.run(small, "cpu")
-    rel = float((res_gpu.x.cpu() - res_cpu.x).abs().max() / res_cpu.x.abs().max())
+    rel = max_rel(res_gpu.x, res_cpu.x)
     print(f"small solve r=3 p=2 double: card {res_gpu.n_iterations} it, cpu {res_cpu.n_iterations} it, "
           f"max rel diff {rel:.3e}", flush=True)
     check(res_gpu.n_iterations == res_cpu.n_iterations and rel <= 1e-8,
@@ -244,34 +347,20 @@ def main() -> int:
     # 4b. the main path: quadrant r=7 p=4, float, 5 repetitions
     prm = bench_params(7, 4, "float", 5)
     torch.cuda.reset_peak_memory_stats()
-    ps.launches.reset()
     t0 = time.perf_counter()
-    result, _problem, levels = api.run(prm, dev)
-    torch.cuda.synchronize()
+    (result, _problem, levels), launches = counted(lambda: api.run(prm, dev))
     wall = time.perf_counter() - t0
-    launches = ps.launches.count
-    expect = expected_launches(levels, result, prm)
+    paths = {"hmg_global_r7_float": launches}
     print(f"levels (NP, S, NS, use_cross): {[(lv.op.NP, lv.op.S, lv.op.NS, lv.op.use_cross) for lv in levels]}",
           flush=True)
-    print(f"solve iterations {result.solve_iterations}; loop residual {result.residual_norm:.4e}, "
-          f"true residual {result.true_residual:.4e} (allowance {result.guard_threshold:.4e}); "
-          f"stencil launches {launches} (expected {expect})", flush=True)
-    check(result.converged, "the r=7 solve did not converge")
-    check(result.solve_iterations == [3] * (prm.mg_data.n_repetitions + 1),
-          f"expected 3 CG iterations in every solve, got {result.solve_iterations}")
-    check(result.true_residual <= result.guard_threshold, "true-residual guard failed")
-    check(launches > 0 and launches == expect, f"stencil launches {launches} != expected {expect}")
-    check("jax" not in sys.modules, "the port imported jax")
-    x = result.x
-    check(x.shape == (result.n_dofs,) and bool(torch.isfinite(x).all()),
-          "the solution is not a finite vector of n_dofs values")
+    check_solve("HMG-global r=7 float", result, levels, prm, launches, n_it=3)
     print(f"HMG-global quadrant r=7 p=4 float: n_dofs {result.n_dofs}, iterations {result.n_iterations}, "
           f"solve {result.time:.6f} s (reps {[round(t, 6) for t in result.time_per_rep]}), "
           f"{result.throughput / 1e6:.3f} MDoF/s, setup {result.setup_time:.1f} s, "
           f"run wall {wall:.1f} s, peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"card {card}", flush=True)
 
-    # 5. per patch level: kernel time x launches per solve against the bound
+    # 5 (main path). per patch level: kernel time x launches per solve against the bound
     deg = prm.mg_data.smoother.degree
     its = result.n_iterations
     patch_levels = [(l, lv) for l, lv in enumerate(levels) if l > 0 and lv.op.NP > 0][::-1]
@@ -287,6 +376,79 @@ def main() -> int:
               f"bound {1e3 * b_ms:.2f} us ({b_by}), roofline share {b_ms / ms:.4f}; card {card}",
               flush=True)
     print(f"stencil per solve: {total:.4f} ms of kernel time; card {card}", flush=True)
+    del result, _problem, levels
+    torch.cuda.empty_cache()
+
+    # 4c. card against CPU, small: PMG and HPMG in double, mixed and df32
+    for mg_type, r, p, number, mg_number, tol in (
+        ("PMG", 3, 4, "double", "double", 1e-8),
+        ("HPMG", 3, 4, "double", "double", 1e-8),
+        ("HMG-global", 3, 2, "mixed", "float", 1e-5),
+        ("HMG-global", 3, 2, "df32", "float", 1e-5),
+        ("HPMG", 3, 2, "mixed", "float", 1e-5),
+        ("HPMG", 3, 2, "df32", "float", 1e-5),
+    ):
+        small = bench_params(r, p, number, 1, mg_type, mg_number)
+        res_gpu, _, _ = api.run(small, dev)
+        res_cpu, _, _ = api.run(small, "cpu")
+        rel = max_rel(res_gpu.x, res_cpu.x)
+        print(f"small solve {mg_type} r={r} p={p} {number}/{mg_number}: card {res_gpu.n_iterations} it, "
+              f"cpu {res_cpu.n_iterations} it, max rel diff {rel:.3e} (limit {tol:g})", flush=True)
+        check(res_gpu.n_iterations == res_cpu.n_iterations and rel <= tol
+              and res_gpu.x.dtype == res_cpu.x.dtype,
+              f"card solve disagrees with the CPU solve ({mg_type} r={r} p={p} {number})")
+
+    # 4d. HPMG quadrant r=7 p=4, mixed outer CG around float levels
+    prm = bench_params(7, 4, "mixed", 5, "HPMG", "float")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (res_m, _problem, levels), launches = counted(lambda: api.run(prm, dev))
+    wall = time.perf_counter() - t0
+    paths["hpmg_r7_mixed"] = launches
+    check(len(levels) == 10 and [lv.degree for lv in levels[-3:]] == [1, 2, 4],
+          f"HPMG r=7 p=4 plan: {[(lv.degree, lv.mesh.n_cells) for lv in levels]}")
+    check_solve("HPMG r=7 mixed", res_m, levels, prm, launches)
+    print(f"HPMG quadrant r=7 p=4 mixed/float: n_dofs {res_m.n_dofs}, levels {len(levels)}, "
+          f"iterations {res_m.n_iterations} (records: 4 at r=4-6), solve {res_m.time:.6f} s "
+          f"(reps {[round(t, 6) for t in res_m.time_per_rep]}), {res_m.throughput / 1e6:.3f} MDoF/s, "
+          f"setup {res_m.setup_time:.1f} s, run wall {wall:.1f} s, "
+          f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card}", flush=True)
+
+    # 4e. df32 on the same hierarchy: the f64 RHS split exactly into a pair
+    fine = levels[-1]
+    b_pair = twofloat.tf_split_f64_host(res_m.rhs_used)
+    # the peak of the solve phase alone (d's peak includes its set-up)
+    torch.cuda.reset_peak_memory_stats()
+    res_d, launches = counted(lambda: api.mg_solve(
+        fine.op, b_pair, PreconditionMG(res_m.mg, torch.float32), prm.mg_data,
+        n_levels=len(levels), n_dofs=fine.dofh.n_dofs,
+    ))
+    paths["hpmg_r7_df32"] = launches
+    res_d.x = fine.to_global(res_d.x)
+    check_solve("HPMG r=7 df32", res_d, levels, prm, launches, setup=False)
+    rel = norm_rel(res_d.x, res_m.x)
+    print(f"HPMG quadrant r=7 p=4 df32/float on the same hierarchy: iterations {res_d.n_iterations} "
+          f"(mixed {res_m.n_iterations}), x vs mixed {rel:.3e} relative, solve {res_d.time:.6f} s "
+          f"(reps {[round(t, 6) for t in res_d.time_per_rep]}), {res_d.throughput / 1e6:.3f} MDoF/s, "
+          f"peak mem of the solves with the hierarchy held "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card}", flush=True)
+    check(abs(res_d.n_iterations - res_m.n_iterations) <= 1 and rel <= 1e-5,
+          "df32 disagrees with mixed on the HPMG r=7 hierarchy")
+    check_levels("HPMG r=7", levels, res_m.n_iterations, prm, card, rng)
+    del res_m, res_d, b_pair, fine, _problem, levels
+    torch.cuda.empty_cache()
+
+    # 4f. PMG quadrant r=5 p=4 mixed: dense coarse solve on the fine mesh at p=1
+    prm = bench_params(5, 4, "mixed", 5, "PMG", "float")
+    (res_p, _problem, levels), launches = counted(lambda: api.run(prm, dev))
+    paths["pmg_r5_mixed"] = launches
+    check_solve("PMG r=5 mixed", res_p, levels, prm, launches)
+    print(f"PMG quadrant r=5 p=4 mixed/float: n_dofs {res_p.n_dofs}, levels {len(levels)}, coarse "
+          f"{levels[0].dofh.n_dofs} DoFs, iterations {res_p.n_iterations} (record: 4), "
+          f"solve {res_p.time:.6f} s, {res_p.throughput / 1e6:.3f} MDoF/s, setup {res_p.setup_time:.1f} s; "
+          f"card {card}", flush=True)
+    check_levels("PMG r=5", levels, res_p.n_iterations, prm, card, rng)
+    del res_p, _problem, levels
 
     # result lines
     print(json.dumps({"kernels": [{
@@ -294,7 +456,8 @@ def main() -> int:
         "route": "cuda",
         "source": "dealii_multigrid_tpu_torch/csrc/patch_stencil.cu",
         "replaces": "dealii_multigrid_tpu/ops/pallas_stencil.py:71",
-        "launches": launches,
+        "launches": paths["hmg_global_r7_float"],
+        "launches_per_path": paths,
         "max_abs_err": measured["max_abs_err"],
         "ms": measured["ms"],
         "plain_ms": measured["plain_ms"],

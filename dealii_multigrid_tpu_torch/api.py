@@ -1,11 +1,14 @@
-"""Solver assembly: build the HMG-global hierarchy and run the benchmarked solve.
+"""Solver assembly: build the global-coarsening hierarchy and run the benchmarked solve.
 
 Mirror of the JAX package's api.py hybrid path (reference L5 layer:
 run / solve_with_global_coarsening / mg_solve, multigrid_throughput.cc:
-817-2396) on torch: each level is a HybridOperator on one device, the
-outer solve is a Python-loop PCG, and timings are fenced with
-``torch.cuda.synchronize()``.  Solver types, number types and coarse types
-that are not ported yet raise NotImplementedError naming their ROADMAP item.
+817-2396) on torch: each level of an HMG-global, PMG or HPMG hierarchy is a
+HybridOperator on one device, the outer solve is a Python-loop PCG in
+float, double, mixed (float64 vectors around the float32 operator) or df32
+(double-single float32 pairs, solvers/twofloat.py), and timings are fenced
+with ``torch.cuda.synchronize()``.  Solver types, number types and coarse
+types that are not ported yet raise NotImplementedError naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import numpy as np
 import torch
 
 from .mesh import generators
-from .mesh.coarsening import geometric_coarsening_sequence
+from .mesh.coarsening import geometric_coarsening_sequence, polynomial_coarsening_sequence
 from .mesh.dof import Constraints, DoFHandler, distribute_dofs, make_hanging_node_constraints
 from .mesh.octree import AdaptiveMesh
 from .models import poisson
@@ -28,21 +31,48 @@ from .ops.operator import compute_diagonal
 from .solvers.cg import cg_solve
 from .solvers.chebyshev import ChebyshevSmoother, estimate_eigenvalue_ranges
 from .solvers.coarse import make_algebraic_solver
+from .solvers import twofloat
 from .solvers.multigrid import Multigrid, PreconditionMG
 from .utils.device import resolve_device
 from .utils.params import MultigridParameters, RunParameters
 
-_DTYPES = {"float": torch.float32, "double": torch.float64}
+_DTYPES = {
+    "float": torch.float32,
+    "double": torch.float64,
+    # float64 Krylov vectors and dots around the float32 operator
+    "mixed": torch.float64,
+    # double-single float32 pairs (solvers/twofloat.py); vectors round to
+    # float32 at the API surface
+    "df32": torch.float32,
+}
 
 
 def number_dtype(name: str) -> torch.dtype:
-    if name in ("mixed", "df32"):
+    if name == "bfloat16":
         raise NotImplementedError(
-            f"number type {name!r} is not ported yet (ROADMAP item 6, mixed and df32)"
+            "number type 'bfloat16' is not ported yet (ROADMAP item 6, bfloat16 levels)"
         )
     if name not in _DTYPES:
         raise ValueError(f"unknown number type {name!r}")
     return _DTYPES[name]
+
+
+class MixedPrecisionOperator:
+    """float64-in/float64-out wrapper applying the operator in its own
+    (float32) precision; dots run in float64."""
+
+    dtype = torch.float64
+
+    def __init__(self, op: HybridOperator):
+        self.op = op
+        # the ownership mask, cast once (a dot casts it to x's dtype)
+        self.owner = op.owner.to(torch.float64)
+
+    def vmult(self, x: torch.Tensor) -> torch.Tensor:
+        return self.op.vmult(x.to(self.op.dtype)).to(torch.float64)
+
+    def dot(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        return torch.sum(x * self.owner.to(x.dtype) * y)
 
 
 def gc_level_plan(
@@ -50,14 +80,21 @@ def gc_level_plan(
 ) -> list[tuple[AdaptiveMesh, int]]:
     """(mesh, degree) per level, coarsest first (reference:
     multigrid_throughput.cc:1546-1576).  HMG-global: every mesh of the
-    geometric coarsening sequence at the fine degree."""
-    if mg_type in ("PMG", "HPMG"):
-        raise NotImplementedError(
-            f"{mg_type} is not ported yet (ROADMAP item 7, PMG/HPMG p-transfers)"
-        )
-    if mg_type != "HMG-global":
-        raise ValueError(f"unknown global-coarsening type {mg_type!r}")
-    return [(t, degree_fine) for t in tri_sequence]
+    geometric coarsening sequence at the fine degree; PMG: the fine mesh at
+    each degree of the bisect sequence; HPMG: every mesh at degree 1, then
+    the fine mesh at the higher degrees."""
+    degrees = polynomial_coarsening_sequence(degree_fine, "bisect")
+    n_tria = len(tri_sequence)
+    if mg_type == "PMG":
+        return [(tri_sequence[-1], d) for d in degrees]
+    if mg_type == "HMG-global":
+        return [(t, degree_fine) for t in tri_sequence]
+    if mg_type == "HPMG":
+        return [
+            (tri_sequence[min(l, n_tria - 1)], degrees[max(0, l - n_tria + 1)])
+            for l in range(len(degrees) + n_tria - 1)
+        ]
+    raise ValueError(f"unknown global-coarsening type {mg_type!r}")
 
 
 @dataclass
@@ -178,20 +215,32 @@ def _fence(device: torch.device) -> None:
 
 
 def mg_solve(
-    fine_op: HybridOperator,
-    rhs: torch.Tensor,
+    fine_op,
+    rhs,
     preconditioner,
     mg_data: MultigridParameters,
     n_levels: int,
     n_dofs: int,
 ) -> MGSolveResult:
     """Warm-up solve + best-of-n_repetitions timed CG, the reference's
-    benchmark protocol (multigrid_throughput.cc:1140-1268)."""
+    benchmark protocol (multigrid_throughput.cc:1140-1268).
+
+    ``fine_op`` is a HybridOperator or a MixedPrecisionOperator.  A
+    twofloat.TF right-hand side selects the df32 CG: the operator and
+    preconditioner apply in plain float32, and x rounds to float32 on the
+    way out."""
     ctrl = mg_data.cg_parameter_study if mg_data.do_parameter_study else mg_data.cg_normal
     force = mg_data.cg_parameter_study.maxiter if mg_data.do_parameter_study else None
-    device = rhs.device
+    df32 = isinstance(rhs, twofloat.TF)
+    device = (rhs.hi if df32 else rhs).device
 
     def solve():
+        if df32:
+            return twofloat.cg_solve_df32(
+                fine_op.vmult, rhs, preconditioner=preconditioner.vmult,
+                maxiter=ctrl.maxiter, abstol=ctrl.abstol, reltol=ctrl.reltol,
+                force_iterations=force, weight=fine_op.owner,
+            )
         return cg_solve(
             fine_op.vmult, rhs, preconditioner=preconditioner.vmult,
             maxiter=ctrl.maxiter, abstol=ctrl.abstol, reltol=ctrl.reltol,
@@ -212,10 +261,16 @@ def mg_solve(
 
     # correctness guard: recompute ||b - A x|| outside the timed loop and
     # require agreement with the loop's residual, allowing for the floor the
-    # operator's precision puts under the attainable true residual
-    r = rhs - fine_op.vmult(res.x)
-    true_res = float(torch.sqrt(fine_op.dot(r, r)))
-    eps_op = torch.finfo(fine_op.dtype).eps
+    # precision of the operator's own application (the inner operator of a
+    # mixed-precision wrapper) puts under the attainable true residual
+    if df32:
+        ax = fine_op.vmult(twofloat.tf_round(res.x))
+        r = twofloat.tf_axpy_f32(-1.0, ax, rhs)
+        true_res = float(twofloat.tf_norm(r, fine_op.owner))
+    else:
+        r = rhs - fine_op.vmult(res.x)
+        true_res = float(torch.sqrt(fine_op.dot(r, r)))
+    eps_op = torch.finfo(getattr(fine_op, "op", fine_op).dtype).eps
     floor = 1e4 * eps_op * res.norm0
     tol_abs = max(ctrl.abstol, ctrl.reltol * res.norm0)
     threshold = 10.0 * max(tol_abs, res.residual_norm) + floor
@@ -226,8 +281,10 @@ def mg_solve(
             f"||b|| {res.norm0:.3e}, allowance {threshold:.3e}): the operator, "
             "preconditioner or a kernel computed an inconsistent state"
         )
+    # a double-single x rounds to float32 at the API surface
+    x = twofloat.tf_round(res.x) if df32 else res.x
     return MGSolveResult(
-        x=res.x,
+        x=x,
         n_iterations=res.n_iterations,
         converged=bool(res.converged),
         time=best,
@@ -245,8 +302,8 @@ def mg_solve(
 def solve_with_global_coarsening_hybrid(
     params: RunParameters, fine_mesh: AdaptiveMesh, device: torch.device
 ):
-    """HMG-global solve on the hybrid engine, one device.  Returns
-    (result, problem, levels)."""
+    """HMG-global, PMG or HPMG solve on the hybrid engine, one device.
+    Returns (result, problem, levels)."""
     if params.n_shards not in (0, 1):
         raise NotImplementedError(
             "sharded solves are not ported yet (ROADMAP item 13, multi-device)"
@@ -262,21 +319,40 @@ def solve_with_global_coarsening_hybrid(
         build_level_hybrid(mesh, degree, device, level_dtype) for mesh, degree in plan
     ]
     fine = levels[-1]
-    outer_op = (
-        fine.op
-        if outer_dtype == level_dtype
-        else make_hybrid_operator(fine.fmt, fine.hanging, device, outer_dtype)
+    mixed = params.number_type == "mixed"
+    df32 = params.number_type == "df32"
+
+    # outer operator: mixed wraps the float32 fine operator; df32 applies it
+    # plainly (the pairs live in the CG); otherwise the outer precision's
+    if mixed or df32:
+        inner = (
+            fine.op
+            if level_dtype == torch.float32
+            else make_hybrid_operator(fine.fmt, fine.hanging, device, torch.float32)
+        )
+        outer_op = MixedPrecisionOperator(inner) if mixed else inner
+    elif outer_dtype == level_dtype:
+        outer_op = fine.op
+    else:
+        outer_op = make_hybrid_operator(fine.fmt, fine.hanging, device, outer_dtype)
+    # mixed and df32 promise a float64-accurate right-hand side: assembled in
+    # float64, then (df32) split exactly into the double-single pair
+    rhs_op = (
+        make_hybrid_operator(fine.fmt, fine.hanging, device, torch.float64)
+        if mixed or df32
+        else outer_op
     )
     problem, rhs_slots = poisson.assemble_problem_hybrid(
-        fine.dofh, fine.hanging, outer_op, cell_slot_table(fine.fmt), fine.fmt,
+        fine.dofh, fine.hanging, rhs_op, cell_slot_table(fine.fmt), fine.fmt,
         params.simulation_type,
     )
+    rhs = twofloat.tf_split_f64_host(rhs_slots) if df32 else rhs_slots.to(outer_dtype)
     mg = build_gc_preconditioner_hybrid(levels, params.mg_data)
     _fence(device)
     setup_time = time.perf_counter() - t_setup
     result = mg_solve(
         outer_op,
-        rhs_slots,
+        rhs,
         PreconditionMG(mg, outer_dtype),
         params.mg_data,
         n_levels=len(levels),
@@ -284,7 +360,7 @@ def solve_with_global_coarsening_hybrid(
     )
     result.setup_time = setup_time
     result.mg = mg
-    result.rhs_used = rhs_slots
+    result.rhs_used = twofloat.tf_round(rhs) if df32 else rhs
     # back to the global layout for error evaluation
     result.x = fine.to_global(result.x)
     return result, problem, levels
@@ -306,14 +382,12 @@ def dispatch_solve(params: RunParameters, mesh: AdaptiveMesh, device: torch.devi
         raise NotImplementedError(
             "2D runs on the gather engine, not ported yet (ROADMAP item 11)"
         )
-    if params.type == "HMG-global":
+    if params.type in ("HMG-global", "PMG", "HPMG"):
         # float32 contractions must stay full precision: TF32 raised CG from 3
         # to 9 iterations on the reference (ops/hybrid.py:44-47 there)
         torch.backends.cuda.matmul.allow_tf32 = False
         return solve_with_global_coarsening_hybrid(params, mesh, device)
     items = {
-        "PMG": "7, PMG/HPMG p-transfers",
-        "HPMG": "7, PMG/HPMG p-transfers",
         "HMG-local": "8, local smoothing",
         "HPMG-local": "8, local smoothing",
         "AMG": "10, AMG",

@@ -55,6 +55,39 @@ class PoissonProblem:
     rhs: torch.Tensor        # constrained system RHS (zeros on constrained DoFs)
     lift: np.ndarray         # x0: Dirichlet inhomogeneity, hanging-distributed
     exact_fn: Callable | None
+    hanging: Constraints     # hanging rows off the Dirichlet boundary
+
+    def full_solution(self, u_hom) -> np.ndarray:
+        """Physical solution on the host, float64: distribute the hanging
+        nodes over (u + lift) (AffineConstraints::distribute)."""
+        u = np.asarray(torch.as_tensor(u_hom).cpu(), dtype=np.float64) + self.lift
+        h = self.hanging
+        if len(h.slave):
+            u[h.slave] = (h.weights * u[h.masters]).sum(axis=1)
+        return u
+
+
+def _cell_geometry(dofh: DoFHandler):
+    """Host tables of the cell quadrature: (B3 [nq, nloc], reference points
+    qp [nq, dim], weights qw [nq], cell lower corners lo [nc, dim], cell
+    widths h [nc])."""
+    mesh = dofh.mesh
+    B3, qp, qw = element.quadrature_tables(dofh.dim, dofh.degree)
+    size = 1.0 / (1 << mesh.level.astype(np.int64))
+    lo = mesh.lower + (mesh.upper - mesh.lower) * mesh.anchor * size[:, None]
+    return B3, qp, qw, lo, mesh.h(mesh.level)
+
+
+def l2_error(problem: PoissonProblem, u_full: np.ndarray) -> float:
+    """Quadrature L2 norm of (u_h - u_exact) over the mesh, on the host in
+    float64 from the cell DoFs (``u_full`` from ``full_solution``)."""
+    dofh = problem.dofh
+    B3, qp, qw, lo, h = _cell_geometry(dofh)
+    pts = lo[:, None, :] + h[:, None, None] * qp[None, :, :]
+    jxw = (h[:, None] ** dofh.dim) * qw[None, :]
+    uq = np.asarray(u_full, np.float64)[dofh.cell_dofs] @ B3.T          # [nc, nq]
+    eq = uq - problem.exact_fn(pts)
+    return float(np.sqrt(np.sum(eq * eq * jxw)))
 
 
 def assemble_problem_hybrid(
@@ -74,7 +107,7 @@ def assemble_problem_hybrid(
     lift x0 is built on the host.
     """
     dtype, device = hop.dtype, hop.device
-    mesh, dim, p = dofh.mesh, dofh.dim, dofh.degree
+    dim = dofh.dim
     if simulation_type == "Constant":
         rhs_fn, bc_np, exact_fn = constant_rhs, None, None
     elif simulation_type == "Gaussian":
@@ -82,10 +115,7 @@ def assemble_problem_hybrid(
     else:
         raise ValueError(f"unknown SimulationType {simulation_type!r}")
 
-    B3, qp, qw = element.quadrature_tables(dim, p)
-    size = 1.0 / (1 << mesh.level.astype(np.int64))
-    lo = mesh.lower + (mesh.upper - mesh.lower) * mesh.anchor * size[:, None]
-    h = mesh.h(mesh.level)
+    B3, qp, qw, lo, h = _cell_geometry(dofh)
 
     # host: Dirichlet inhomogeneity lift x0 (hanging-distributed, global)
     hang, dirichlet = split_boundary_constraints(dofh, hanging)
@@ -112,5 +142,5 @@ def assemble_problem_hybrid(
     r = hop.apply_ct(r)
     rhs_slots = r * hop.constrained_keep
     rep = torch.as_tensor(fmt.rep_slot, dtype=torch.int64, device=device)
-    problem = PoissonProblem(dofh, rhs_slots[rep], x0, exact_fn)
+    problem = PoissonProblem(dofh, rhs_slots[rep], x0, exact_fn, hang)
     return problem, rhs_slots

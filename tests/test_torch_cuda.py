@@ -93,6 +93,15 @@ def test_kernel_random_banded_matrices(cuda, b, dtype):
     assert_matches_plain(ps.patch_stencil(*args, b), args, dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("NP,S,p", [(512, 17, 2), (512, 9, 1)])
+def test_kernel_at_hpmg_fine_mesh_shapes(cuda, NP, S, p, dtype):
+    """The p = 2 and p = 1 levels of HPMG on the r=7 fine mesh."""
+    args = stencil_inputs(S, NP, dtype, cuda, p=p)
+    assert ps.matrix_band(args[1].cpu(), args[2].cpu()) == p
+    assert_matches_plain(ps.patch_stencil(*args, p), args, dtype)
+
+
 def test_kernel_allocates_only_out(cuda):
     args = stencil_inputs(33, 64, torch.float32, cuda)
     ps.patch_stencil(*args, 4)
@@ -104,21 +113,36 @@ def test_kernel_allocates_only_out(cuda):
     assert torch.cuda.max_memory_allocated() - base <= out.numel() * out.element_size() + 512
 
 
-def test_small_solve_on_card_matches_cpu(cuda):
+def small_params(mg_type, r, p, number, mg_number):
     prm = RunParameters()
-    prm.type = "HMG-global"
+    prm.type = mg_type
     prm.geometry_type = "quadrant"
-    prm.n_ref_global = 4
-    prm.fe_degree_fine = 4
-    prm.number_type = "double"
-    prm.mg_number_type = "double"
+    prm.n_ref_global = r
+    prm.fe_degree_fine = p
+    prm.number_type = number
+    prm.mg_number_type = mg_number
     prm.mg_data.smoother.degree = 3
     prm.mg_data.n_repetitions = 1
+    return prm
+
+
+@pytest.mark.parametrize("mg_type,r,p,number,mg_number,tol", [
+    ("HMG-global", 4, 4, "double", "double", 1e-8),
+    ("PMG", 3, 4, "double", "double", 1e-8),
+    ("HPMG", 3, 4, "double", "double", 1e-8),
+    ("HMG-global", 3, 2, "mixed", "float", 1e-5),
+    ("HMG-global", 3, 2, "df32", "float", 1e-5),
+    ("HPMG", 3, 2, "mixed", "float", 1e-5),
+    ("HPMG", 3, 2, "df32", "float", 1e-5),
+])
+def test_small_solve_on_card_matches_cpu(cuda, mg_type, r, p, number, mg_number, tol):
+    prm = small_params(mg_type, r, p, number, mg_number)
     before = ps.launches.count
     res_gpu, _, levels = api.run(prm, cuda)
     assert ps.launches.count > before
-    assert all(lv.op.band == 4 for lv in levels)
+    assert all(lv.op.band == lv.degree for lv in levels)
     res_cpu, _, _ = api.run(prm, "cpu")
     assert res_gpu.n_iterations == res_cpu.n_iterations
+    assert res_gpu.x.dtype == res_cpu.x.dtype
     rel = (res_gpu.x.cpu() - res_cpu.x).abs().max() / res_cpu.x.abs().max()
-    assert float(rel) <= 1e-8
+    assert float(rel) <= tol

@@ -77,11 +77,11 @@ def test_float_levels_under_double_outer_cg():
 @pytest.mark.parametrize(
     "field,value,item",
     [
-        ("type", "PMG", "item 7"),
+        ("type", "HPMG-local", "item 8"),
         ("type", "HMG-local", "item 8"),
         ("type", "AMG", "item 10"),
-        ("number_type", "mixed", "item 6"),
-        ("number_type", "df32", "item 6"),
+        ("type", "AMGPETSc", "item 10"),
+        ("mg_number_type", "bfloat16", "item 6"),
     ],
 )
 def test_unported_configurations_name_their_roadmap_item(field, value, item):

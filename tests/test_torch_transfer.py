@@ -3,9 +3,10 @@
 Both transfers apply identical tables: the port's are built with
 ``HybridTransfer.from_arrays`` from the JAX transfer's data leaves (as NumPy
 arrays).  prolong and restrict must agree to 1e-10 relative in float64 on
-consistent vectors, for an h-transfer (same patch size on both levels), a
-p-transfer, and an h-transfer whose coarse level uses half the patch size
-(the octant-identity and whole-coarse-patch-parent buckets).
+consistent vectors, for an h-transfer (same patch size on both levels),
+p-transfers 2 -> 1 and 4 -> 2 on one mesh, and an h-transfer whose coarse
+level uses half the patch size (the octant-identity and
+whole-coarse-patch-parent buckets).
 """
 
 import jax
@@ -60,12 +61,15 @@ def case(kind):
     if kind == "p":
         m = JG.create_quadrant(3, 4)
         return (m, 2, 4), (m, 1, 4)
+    if kind == "p42":
+        m = JG.create_quadrant(3, 3)
+        return (m, 4, 4), (m, 2, 4)
     # one refined octant on a uniform cube, coarse K = fine K / 2
     seq = geometric_coarsening_sequence(JG.create_quadrant_flexible(3, 3, 1))
     return (seq[-1], 2, 4), (seq[-2], 2, 2)
 
 
-@pytest.mark.parametrize("kind", ["h", "p", "cross_k"])
+@pytest.mark.parametrize("kind", ["h", "p", "p42", "cross_k"])
 def test_prolong_restrict_match_jax(kind):
     (fm, pf, Kf), (cm, pc, Kc) = case(kind)
     fd, ff, fjop = level(fm, pf, Kf)
