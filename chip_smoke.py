@@ -30,10 +30,24 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
         1e-5 relative of d's;
      f. PMG quadrant r=5 p=4 mixed (3 levels, dense coarse solve on the
         fine mesh at p=1): converged, launches as expected;
-  5. for every patch level of the b, d and f hierarchies: the kernel on the
-     level's own KS, MS and pscale against the plain version, its time,
-     launches per solve and bound; then the kernels line, the card's name
-     and power limit, and the result line.
+     g. card against CPU, small, local smoothing: HMG-local and HPMG-local
+        at r=3 p=4 in double (x to 1e-8), at r=3 p=2 in mixed and df32
+        over float levels (x to 1e-5), equal iteration counts;
+     h. HMG-local quadrant r=7 p=4 (17,551,967 DoFs, 8 levels), NumberType
+        double, float levels, 5 repetitions: 4 iterations in all six
+        solves, the guard, launches as expected;
+     i. HPMG-local quadrant r=7 p=4 (10 levels: p = 4, 2 on the active
+        mesh above the degree-1 LS hierarchy), double over float, 5
+        repetitions: converged, one iteration count in all solves, the
+        guard, launches as expected;
+  5. for every patch level of the b, d, f, h and i hierarchies (h and i
+     through ``result.mg`` and ``result.ls_mg``): the kernel on the level's
+     own KS, MS and pscale against the plain version, its time, launches
+     per solve and bound; then the kernels line, the card's name and power
+     limit, and the result line.
+
+The expected launch counts come from the same per-level entries
+(``gc_entries``, ``ls_entries``) that step 5 reads.
 """
 
 from __future__ import annotations
@@ -42,6 +56,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -204,21 +219,61 @@ def check_kernel(dev: torch.device) -> dict:
     return measured
 
 
-def expected_launches(levels, iterations, prm, setup: bool = True) -> int:
-    """Stencil launches a solve path implies: each vmult of a level with
-    patches launches once.  Eigenvalue estimation (``setup``):
-    eig_cg_n_iterations vmults per level above the coarsest; each CG
-    iteration: one fine vmult (the mixed and df32 outer operator is the
-    fine level's float32 operator) plus one V-cycle of 2 * degree vmults per
-    level above the coarsest (degree - 1 in the pre-smoother, 1 residual,
-    degree in the post-smoother); the residual guard: one fine vmult; the
-    RHS: one fine vmult only with a Dirichlet lift (none for "Constant")."""
-    P = sum(1 for lv in levels[1:] if lv.op.NP > 0)
-    fine = 1 if levels[-1].op.NP > 0 else 0
+class Entry(NamedTuple):
+    """One operator of a solve path, as the stencil launches it."""
+
+    label: str
+    op: object                  # HybridOperator
+    per_iteration: int          # launches per CG iteration
+    dtype: torch.dtype          # dtype of those launches
+    setup: int                  # launches of the eigenvalue estimate
+
+
+def gc_entries(levels, prm) -> list:
+    """Entries of a global-coarsening hierarchy, finest first: each V-cycle
+    visit of a level above the coarsest launches 2 * degree times (degree - 1
+    in the pre-smoother, 1 residual, degree in the post-smoother), the finest
+    once more for the outer vmult (the mixed and df32 outer operator is the
+    fine level's float32 operator); the eigenvalue estimate runs
+    eig_cg_n_iterations vmults on each."""
     deg = prm.mg_data.smoother.degree
-    n = prm.mg_data.smoother.eig_cg_n_iterations * P if setup else 0
-    n += sum(iterations) * (fine + 2 * deg * P)
-    return n + fine
+    eig = prm.mg_data.smoother.eig_cg_n_iterations
+    return [
+        Entry(f"L{l} p={levels[l].degree}", levels[l].op,
+              2 * deg + (1 if l == len(levels) - 1 else 0), levels[l].op.dtype, eig)
+        for l in range(len(levels) - 1, 0, -1)
+    ]
+
+
+def ls_entries(result, fine, outer_dtype, prm) -> list:
+    """Entries of an LS path, finest first: the outer operator (the fine
+    level's tables, applied in ``outer_dtype``) once per iteration; the
+    p-levels above the LS hierarchy (HPMG-local) 2 * degree per visit; every
+    LS level above its coarsest 2 * degree + 2 per visit (interface_down and
+    interface_up besides the smoother and residual).  Levels above each
+    hierarchy's coarsest run the eigenvalue estimate."""
+    deg = prm.mg_data.smoother.degree
+    eig = prm.mg_data.smoother.eig_cg_n_iterations
+    p_ops = result.mg.operators if result.mg is not None else []
+    ls_levels = result.ls_mg.levels
+    out = [Entry(f"outer p={fine.degree}", fine.op, 1, outer_dtype, 0)]
+    out += [Entry(f"p={p_ops[l].n1 - 1}", p_ops[l], 2 * deg, p_ops[l].dtype, eig)
+            for l in range(len(p_ops) - 1, 0, -1)]
+    out += [Entry(f"LS L{l}", ls_levels[l].op, 2 * deg + 2, ls_levels[l].op.dtype, eig)
+            for l in range(len(ls_levels) - 1, 0, -1)]
+    return out
+
+
+def expected_launches(entries, iterations, setup: bool = True) -> int:
+    """Stencil launches a solve path implies: an operator with patches
+    launches once per vmult.  Each CG iteration the entries' launches per
+    iteration; the eigenvalue estimates (``setup``); one vmult of the finest
+    entry for the residual guard; none for the "Constant" RHS."""
+    live = [e for e in entries if e.op.NP > 0]
+    n = sum(iterations) * sum(e.per_iteration for e in live)
+    if setup:
+        n += sum(e.setup for e in live)
+    return n + (1 if entries[0].op.NP > 0 else 0)
 
 
 def counted(fn):
@@ -242,13 +297,13 @@ def norm_rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
 
 
-def check_solve(name: str, result, levels, prm, launches: int, n_it: int | None = None,
+def check_solve(name: str, result, entries, launches: int, n_it: int | None = None,
                 setup: bool = True) -> None:
     """The checks every full-size path makes, and its line of numbers."""
-    expect = expected_launches(levels, result.solve_iterations, prm, setup)
+    expect = expected_launches(entries, result.solve_iterations, setup)
     its = result.solve_iterations
-    print(f"{name}: levels (degree, n_dofs, NP, S, band) "
-          f"{[(lv.degree, lv.dofh.n_dofs, lv.op.NP, lv.op.S, lv.op.band) for lv in levels]}",
+    print(f"{name}: operators (label, NP, S, band, launches per iteration) "
+          f"{[(e.label, e.op.NP, e.op.S, e.op.band, e.per_iteration) for e in entries]}",
           flush=True)
     print(f"{name}: solve iterations {its}; loop residual {result.residual_norm:.4e}, "
           f"true residual {result.true_residual:.4e} (allowance {result.guard_threshold:.4e}); "
@@ -265,18 +320,18 @@ def check_solve(name: str, result, levels, prm, launches: int, n_it: int | None 
           f"{name}: the solution is not a finite vector of n_dofs values")
 
 
-def check_levels(name: str, levels, iterations: int, prm, card: str, rng) -> None:
+def check_levels(name: str, entries, iterations: int, card: str, rng) -> None:
     """Each patch level's own KS, MS and pscale through the kernel against the
-    plain version (the level's dtype and float64), its time with CUDA events,
-    and launches per solve x time against the bound."""
+    plain version (the level's dtype and float64), its time with CUDA events
+    in the dtype the solve launches it in, and launches per solve (of
+    ``iterations`` CG iterations) x time against the bound."""
     from dealii_multigrid_tpu_torch.ops import patch_stencil as ps
 
-    deg = prm.mg_data.smoother.degree
     total = 0.0
-    for l in range(len(levels) - 1, 0, -1):
-        op = levels[l].op
+    for label, op, per_iteration, run_dtype, _ in entries:
         if op.NP == 0:
             continue
+        n = per_iteration * iterations
         for dtype in (op.dtype, torch.float64):
             KS, MS, sc = (t.to(dtype).contiguous() for t in (op.KS, op.MS, op.pscale))
             xp = torch.as_tensor(rng.standard_normal((op.NP, op.S**3)), dtype=dtype, device=op.device)
@@ -290,17 +345,17 @@ def check_levels(name: str, levels, iterations: int, prm, card: str, rng) -> Non
             else:
                 ok = err <= F64_REL * rmax
             tag = "f32" if dtype == torch.float32 else "f64"
-            print(f"{name} L{l} kernel check {tag} NP={op.NP} S={op.S} band={op.band}: "
+            print(f"{name} {label} kernel check {tag} NP={op.NP} S={op.S} band={op.band}: "
                   f"max_abs_err={err:.3e} max|ref|={rmax:.3e} ok={ok}", flush=True)
-            check(ok, f"{name} L{l}: the kernel disagrees with the plain version ({tag})")
-        KS, MS, sc = op.KS, op.MS, op.pscale
-        xp = torch.as_tensor(rng.standard_normal((op.NP, op.S**3)), dtype=op.dtype, device=op.device)
+            check(ok, f"{name} {label}: the kernel disagrees with the plain version ({tag})")
+        KS, MS, sc = (t.to(run_dtype).contiguous() for t in (op.KS, op.MS, op.pscale))
+        xp = torch.as_tensor(rng.standard_normal((op.NP, op.S**3)), dtype=run_dtype, device=op.device)
         kern = lambda: ps.patch_stencil(xp, KS, MS, sc, op.band)  # noqa: E731
         ms = min(time_ms(kern, TIMED_LAUNCHES), time_ms(kern, TIMED_LAUNCHES))
-        b_ms, b_by = bound(op.NP, op.S, KS, MS, op.dtype)
-        n = iterations * (2 * deg + (1 if l == len(levels) - 1 else 0))
+        b_ms, b_by = bound(op.NP, op.S, KS, MS, run_dtype)
         total += n * ms
-        print(f"{name} L{l} p={levels[l].degree} NP={op.NP} S={op.S} band={op.band}: {n} launches "
+        tag = "f32" if run_dtype == torch.float32 else "f64"
+        print(f"{name} {label} {tag} NP={op.NP} S={op.S} band={op.band}: {n} launches "
               f"per solve x {ms:.6f} ms = {n * ms:.4f} ms; bound {1e3 * b_ms:.2f} us ({b_by}), "
               f"roofline share {b_ms / ms:.4f}; card {card}", flush=True)
     print(f"{name}: stencil per solve {total:.4f} ms of kernel time; card {card}", flush=True)
@@ -346,6 +401,7 @@ def main() -> int:
 
     # 4b. the main path: quadrant r=7 p=4, float, 5 repetitions
     prm = bench_params(7, 4, "float", 5)
+    before = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     (result, _problem, levels), launches = counted(lambda: api.run(prm, dev))
@@ -353,30 +409,32 @@ def main() -> int:
     paths = {"hmg_global_r7_float": launches}
     print(f"levels (NP, S, NS, use_cross): {[(lv.op.NP, lv.op.S, lv.op.NS, lv.op.use_cross) for lv in levels]}",
           flush=True)
-    check_solve("HMG-global r=7 float", result, levels, prm, launches, n_it=3)
+    entries = gc_entries(levels, prm)
+    check_solve("HMG-global r=7 float", result, entries, launches, n_it=3)
     print(f"HMG-global quadrant r=7 p=4 float: n_dofs {result.n_dofs}, iterations {result.n_iterations}, "
           f"solve {result.time:.6f} s (reps {[round(t, 6) for t in result.time_per_rep]}), "
           f"{result.throughput / 1e6:.3f} MDoF/s, setup {result.setup_time:.1f} s, "
-          f"run wall {wall:.1f} s, peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-          f"card {card}", flush=True)
+          f"run wall {wall:.1f} s, peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"(allocated before the run {before:.2f} GiB); card {card}", flush=True)
 
     # 5 (main path). per patch level: kernel time x launches per solve against the bound
-    deg = prm.mg_data.smoother.degree
-    its = result.n_iterations
-    patch_levels = [(l, lv) for l, lv in enumerate(levels) if l > 0 and lv.op.NP > 0][::-1]
-    check([(lv.op.NP, lv.op.S) for _, lv in patch_levels] == list(MAIN_SHAPES),
-          f"patch level shapes {[(lv.op.NP, lv.op.S) for _, lv in patch_levels]} != {MAIN_SHAPES}")
+    shapes = [(e.op.NP, e.op.S) for e in entries if e.op.NP > 0]
+    check(shapes == list(MAIN_SHAPES), f"patch level shapes {shapes} != {MAIN_SHAPES}")
     check(all(lv.op.band == 4 for lv in levels), "an operator's band is not p = 4")
     total = 0.0
-    for l, lv in patch_levels:
-        n = its * (2 * deg + (1 if l == len(levels) - 1 else 0))
-        ms, b_ms, b_by = measured["shapes"][(torch.float32, lv.op.NP, lv.op.S)]
+    for label, op, per_iteration, _, _ in entries:
+        if op.NP == 0:
+            continue
+        n = per_iteration * result.n_iterations
+        ms, b_ms, b_by = measured["shapes"][(torch.float32, op.NP, op.S)]
         total += n * ms
-        print(f"L{l} NP={lv.op.NP} S={lv.op.S}: {n} launches per solve x {ms:.6f} ms = {n * ms:.4f} ms; "
+        print(f"{label} NP={op.NP} S={op.S}: {n} launches per solve x {ms:.6f} ms = {n * ms:.4f} ms; "
               f"bound {1e3 * b_ms:.2f} us ({b_by}), roofline share {b_ms / ms:.4f}; card {card}",
               flush=True)
     print(f"stencil per solve: {total:.4f} ms of kernel time; card {card}", flush=True)
-    del result, _problem, levels
+    # release every reference to the hierarchy: the next phases' peaks
+    # must not include it
+    del result, _problem, levels, entries, op
     torch.cuda.empty_cache()
 
     # 4c. card against CPU, small: PMG and HPMG in double, mixed and df32
@@ -400,6 +458,7 @@ def main() -> int:
 
     # 4d. HPMG quadrant r=7 p=4, mixed outer CG around float levels
     prm = bench_params(7, 4, "mixed", 5, "HPMG", "float")
+    before = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     (res_m, _problem, levels), launches = counted(lambda: api.run(prm, dev))
@@ -407,12 +466,14 @@ def main() -> int:
     paths["hpmg_r7_mixed"] = launches
     check(len(levels) == 10 and [lv.degree for lv in levels[-3:]] == [1, 2, 4],
           f"HPMG r=7 p=4 plan: {[(lv.degree, lv.mesh.n_cells) for lv in levels]}")
-    check_solve("HPMG r=7 mixed", res_m, levels, prm, launches)
+    entries = gc_entries(levels, prm)
+    check_solve("HPMG r=7 mixed", res_m, entries, launches)
     print(f"HPMG quadrant r=7 p=4 mixed/float: n_dofs {res_m.n_dofs}, levels {len(levels)}, "
           f"iterations {res_m.n_iterations} (records: 4 at r=4-6), solve {res_m.time:.6f} s "
           f"(reps {[round(t, 6) for t in res_m.time_per_rep]}), {res_m.throughput / 1e6:.3f} MDoF/s, "
           f"setup {res_m.setup_time:.1f} s, run wall {wall:.1f} s, "
-          f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card}", flush=True)
+          f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"(allocated before the run {before:.2f} GiB); card {card}", flush=True)
 
     # 4e. df32 on the same hierarchy: the f64 RHS split exactly into a pair
     fine = levels[-1]
@@ -425,7 +486,7 @@ def main() -> int:
     ))
     paths["hpmg_r7_df32"] = launches
     res_d.x = fine.to_global(res_d.x)
-    check_solve("HPMG r=7 df32", res_d, levels, prm, launches, setup=False)
+    check_solve("HPMG r=7 df32", res_d, entries, launches, setup=False)
     rel = norm_rel(res_d.x, res_m.x)
     print(f"HPMG quadrant r=7 p=4 df32/float on the same hierarchy: iterations {res_d.n_iterations} "
           f"(mixed {res_m.n_iterations}), x vs mixed {rel:.3e} relative, solve {res_d.time:.6f} s "
@@ -434,21 +495,75 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card}", flush=True)
     check(abs(res_d.n_iterations - res_m.n_iterations) <= 1 and rel <= 1e-5,
           "df32 disagrees with mixed on the HPMG r=7 hierarchy")
-    check_levels("HPMG r=7", levels, res_m.n_iterations, prm, card, rng)
-    del res_m, res_d, b_pair, fine, _problem, levels
+    check_levels("HPMG r=7", entries, res_m.n_iterations, card, rng)
+    del res_m, res_d, b_pair, fine, _problem, levels, entries
     torch.cuda.empty_cache()
 
     # 4f. PMG quadrant r=5 p=4 mixed: dense coarse solve on the fine mesh at p=1
     prm = bench_params(5, 4, "mixed", 5, "PMG", "float")
     (res_p, _problem, levels), launches = counted(lambda: api.run(prm, dev))
     paths["pmg_r5_mixed"] = launches
-    check_solve("PMG r=5 mixed", res_p, levels, prm, launches)
+    entries = gc_entries(levels, prm)
+    check_solve("PMG r=5 mixed", res_p, entries, launches)
     print(f"PMG quadrant r=5 p=4 mixed/float: n_dofs {res_p.n_dofs}, levels {len(levels)}, coarse "
           f"{levels[0].dofh.n_dofs} DoFs, iterations {res_p.n_iterations} (record: 4), "
           f"solve {res_p.time:.6f} s, {res_p.throughput / 1e6:.3f} MDoF/s, setup {res_p.setup_time:.1f} s; "
           f"card {card}", flush=True)
-    check_levels("PMG r=5", levels, res_p.n_iterations, prm, card, rng)
-    del res_p, _problem, levels
+    check_levels("PMG r=5", entries, res_p.n_iterations, card, rng)
+    del res_p, _problem, levels, entries
+    torch.cuda.empty_cache()
+
+    # 4g. card against CPU, small: HMG-local and HPMG-local
+    for mg_type, r, p, number, mg_number, tol in (
+        ("HMG-local", 3, 4, "double", "double", 1e-8),
+        ("HPMG-local", 3, 4, "double", "double", 1e-8),
+        ("HMG-local", 3, 2, "mixed", "float", 1e-5),
+        ("HMG-local", 3, 2, "df32", "float", 1e-5),
+        ("HPMG-local", 3, 2, "mixed", "float", 1e-5),
+        ("HPMG-local", 3, 2, "df32", "float", 1e-5),
+    ):
+        small = bench_params(r, p, number, 1, mg_type, mg_number)
+        res_gpu, _, _ = api.run(small, dev)
+        res_cpu, _, _ = api.run(small, "cpu")
+        rel = max_rel(res_gpu.x, res_cpu.x)
+        print(f"small solve {mg_type} r={r} p={p} {number}/{mg_number}: card {res_gpu.n_iterations} it, "
+              f"cpu {res_cpu.n_iterations} it, max rel diff {rel:.3e} (limit {tol:g})", flush=True)
+        check(res_gpu.n_iterations == res_cpu.n_iterations and rel <= tol
+              and res_gpu.x.dtype == res_cpu.x.dtype,
+              f"card solve disagrees with the CPU solve ({mg_type} r={r} p={p} {number})")
+
+    # 4h, 4i. HMG-local and HPMG-local quadrant r=7 p=4, double over float
+    # (the records' configuration: results/small-scaling-quadrant-tpu-merged.txt:23)
+    for key, mg_type, n_levels, n_it in (
+        ("hmg_local_r7", "HMG-local", 8, 4),
+        ("hpmg_local_r7", "HPMG-local", 10, None),
+    ):
+        prm = bench_params(7, 4, "double", 5, mg_type, "float")
+        before = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (res, _problem, levels), launches = counted(lambda: api.run(prm, dev))
+        wall = time.perf_counter() - t0
+        paths[key] = launches
+        ls_levels = res.ls_mg.levels
+        print(f"{mg_type} r=7: LS levels (n_dofs, NP, S, NS, band) "
+              f"{[(lv.fmt.dofh.n_dofs, lv.op.NP, lv.op.S, lv.op.NS, lv.op.band) for lv in ls_levels]}",
+              flush=True)
+        check(res.n_dofs == 17_551_967 and res.n_levels == n_levels,
+              f"{mg_type} r=7: {res.n_dofs} DoFs, {res.n_levels} levels")
+        check(all(lv.op.band == lv.fmt.dofh.degree for lv in ls_levels),
+              f"{mg_type} r=7: an LS level's band is not its degree")
+        entries = ls_entries(res, levels[0], torch.float64, prm)
+        check_solve(f"{mg_type} r=7", res, entries, launches, n_it=n_it)
+        print(f"{mg_type} quadrant r=7 p=4 double/float: n_dofs {res.n_dofs}, levels {res.n_levels}, "
+              f"iterations {res.n_iterations} (records: 4), solve {res.time:.6f} s "
+              f"(reps {[round(t, 6) for t in res.time_per_rep]}), {res.throughput / 1e6:.3f} MDoF/s, "
+              f"setup {res.setup_time:.1f} s, run wall {wall:.1f} s, "
+              f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"(allocated before the run {before:.2f} GiB); card {card}", flush=True)
+        check_levels(f"{mg_type} r=7", entries, res.n_iterations, card, rng)
+        del res, _problem, levels, ls_levels, entries
+        torch.cuda.empty_cache()
 
     # result lines
     print(json.dumps({"kernels": [{

@@ -1,14 +1,15 @@
-"""Solver assembly: build the global-coarsening hierarchy and run the benchmarked solve.
+"""Solver assembly: build the multigrid hierarchy and run the benchmarked solve.
 
 Mirror of the JAX package's api.py hybrid path (reference L5 layer:
-run / solve_with_global_coarsening / mg_solve, multigrid_throughput.cc:
-817-2396) on torch: each level of an HMG-global, PMG or HPMG hierarchy is a
-HybridOperator on one device, the outer solve is a Python-loop PCG in
-float, double, mixed (float64 vectors around the float32 operator) or df32
-(double-single float32 pairs, solvers/twofloat.py), and timings are fenced
-with ``torch.cuda.synchronize()``.  Solver types, number types and coarse
-types that are not ported yet raise NotImplementedError naming their
-ROADMAP item.
+run / solve_with_global_coarsening / solve_with_local_smoothing / mg_solve,
+multigrid_throughput.cc:817-2396) on torch: each level of an HMG-global,
+PMG, HPMG, HMG-local or HPMG-local hierarchy is a HybridOperator on one
+device, the outer solve is a Python-loop PCG in float, double, mixed
+(float64 vectors around the float32 operator) or df32 (double-single
+float32 pairs, solvers/twofloat.py), and timings are fenced with
+``torch.cuda.synchronize()``.  Solver types, number types and coarse types
+that are not ported yet raise NotImplementedError naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from .solvers.cg import cg_solve
 from .solvers.chebyshev import ChebyshevSmoother, estimate_eigenvalue_ranges
 from .solvers.coarse import make_algebraic_solver
 from .solvers import twofloat
+from .solvers.local_smoothing import LocalSmoothingMGHybrid, build_local_smoothing_mg_hybrid
 from .solvers.multigrid import Multigrid, PreconditionMG
 from .utils.device import resolve_device
 from .utils.params import MultigridParameters, RunParameters
@@ -144,10 +146,13 @@ def build_level_hybrid(
 
 
 def build_gc_preconditioner_hybrid(
-    levels: list[HybridLevel], mg_data: MultigridParameters
+    levels: list[HybridLevel], mg_data: MultigridParameters, coarse_solve=None
 ) -> Multigrid:
+    """Transfers, smoothers and the coarse solve of a global-coarsening
+    hierarchy.  A given ``coarse_solve`` (HPMG-local's LS V-cycle) replaces
+    the dense solve on ``levels[0]``, and nothing is built for that level."""
     kind = mg_data.coarse_solver.type
-    if kind not in ("amg", "direct"):
+    if coarse_solve is None and kind not in ("amg", "direct"):
         raise NotImplementedError(
             f"coarse solver type {kind!r} is not ported yet (ROADMAP item 10, AMG "
             "and the other coarse types)"
@@ -178,15 +183,16 @@ def build_gc_preconditioner_hybrid(
                 smoothing_range=mg_data.smoother.smoothing_range,
             )
         )
-    coarse = make_algebraic_solver(
-        levels[0].dofh, levels[0].hanging,
-        levels[0].to_global_idx, levels[0].from_global_idx, levels[0].op.dtype,
-    )
+    if coarse_solve is None:
+        coarse_solve = make_algebraic_solver(
+            levels[0].dofh, levels[0].hanging,
+            levels[0].to_global_idx, levels[0].from_global_idx, levels[0].op.dtype,
+        )
     return Multigrid(
         operators=tuple(lv.op for lv in levels),
         smoothers=tuple(smoothers),
         transfers=tuple(transfers),
-        coarse_solve=coarse,
+        coarse_solve=coarse_solve,
     )
 
 
@@ -205,7 +211,8 @@ class MGSolveResult:
     guard_threshold: float      # the allowance the true residual passed
     solve_iterations: list      # iteration count of every solve, warm-up first
     setup_time: float = 0.0     # host + device setup before the first solve, s
-    mg: Multigrid | None = None
+    mg: object = None           # the global-coarsening Multigrid (None on HMG-local)
+    ls_mg: object = None        # the LocalSmoothingMGHybrid of HMG-local and HPMG-local
     rhs_used: torch.Tensor | None = None
 
 
@@ -299,29 +306,14 @@ def mg_solve(
     )
 
 
-def solve_with_global_coarsening_hybrid(
-    params: RunParameters, fine_mesh: AdaptiveMesh, device: torch.device
-):
-    """HMG-global, PMG or HPMG solve on the hybrid engine, one device.
-    Returns (result, problem, levels)."""
-    if params.n_shards not in (0, 1):
-        raise NotImplementedError(
-            "sharded solves are not ported yet (ROADMAP item 13, multi-device)"
-        )
-    t_setup = time.perf_counter()
+def _outer_problem(params: RunParameters, fine: HybridLevel, device: torch.device):
+    """The outer CG's operator and right-hand side on the fine level, and the
+    assembled problem: (outer_op, rhs, problem).  ``rhs`` is a twofloat.TF
+    pair under df32."""
     outer_dtype = number_dtype(params.number_type)
-    level_dtype = number_dtype(params.mg_number_type)
-    tri_seq = geometric_coarsening_sequence(
-        fine_mesh, params.min_level, params.min_n_cells
-    )
-    plan = gc_level_plan(params.type, tri_seq, params.fe_degree_fine)
-    levels = [
-        build_level_hybrid(mesh, degree, device, level_dtype) for mesh, degree in plan
-    ]
-    fine = levels[-1]
+    level_dtype = fine.op.dtype
     mixed = params.number_type == "mixed"
     df32 = params.number_type == "df32"
-
     # outer operator: mixed wraps the float32 fine operator; df32 applies it
     # plainly (the pairs live in the CG); otherwise the outer precision's
     if mixed or df32:
@@ -347,28 +339,111 @@ def solve_with_global_coarsening_hybrid(
         params.simulation_type,
     )
     rhs = twofloat.tf_split_f64_host(rhs_slots) if df32 else rhs_slots.to(outer_dtype)
-    mg = build_gc_preconditioner_hybrid(levels, params.mg_data)
-    _fence(device)
+    return outer_op, rhs, problem
+
+
+def _timed_solve(params, fine: HybridLevel, outer_op, rhs, precond, n_levels: int,
+                 t_setup: float) -> MGSolveResult:
+    """Fence the set-up, run mg_solve, and return x in the global layout."""
+    _fence(fine.op.device)
     setup_time = time.perf_counter() - t_setup
     result = mg_solve(
-        outer_op,
-        rhs,
-        PreconditionMG(mg, outer_dtype),
-        params.mg_data,
-        n_levels=len(levels),
-        n_dofs=fine.dofh.n_dofs,
+        outer_op, rhs, precond, params.mg_data, n_levels=n_levels, n_dofs=fine.dofh.n_dofs
     )
     result.setup_time = setup_time
-    result.mg = mg
-    result.rhs_used = twofloat.tf_round(rhs) if df32 else rhs
+    result.rhs_used = twofloat.tf_round(rhs) if isinstance(rhs, twofloat.TF) else rhs
     # back to the global layout for error evaluation
     result.x = fine.to_global(result.x)
+    return result
+
+
+def solve_with_global_coarsening_hybrid(
+    params: RunParameters, fine_mesh: AdaptiveMesh, device: torch.device
+):
+    """HMG-global, PMG or HPMG solve on the hybrid engine, one device.
+    Returns (result, problem, levels)."""
+    t_setup = time.perf_counter()
+    outer_dtype = number_dtype(params.number_type)
+    level_dtype = number_dtype(params.mg_number_type)
+    tri_seq = geometric_coarsening_sequence(
+        fine_mesh, params.min_level, params.min_n_cells
+    )
+    plan = gc_level_plan(params.type, tri_seq, params.fe_degree_fine)
+    levels = [
+        build_level_hybrid(mesh, degree, device, level_dtype) for mesh, degree in plan
+    ]
+    outer_op, rhs, problem = _outer_problem(params, levels[-1], device)
+    mg = build_gc_preconditioner_hybrid(levels, params.mg_data)
+    result = _timed_solve(
+        params, levels[-1], outer_op, rhs, PreconditionMG(mg, outer_dtype), len(levels),
+        t_setup,
+    )
+    result.mg = mg
     return result, problem, levels
+
+
+@dataclass(frozen=True)
+class PreconditionLS:
+    """Precision and constrained-subspace wrapper around the LS V-cycle;
+    callable, so that it can serve as a coarse solve (HPMG-local)."""
+
+    lsmg: LocalSmoothingMGHybrid
+    keep: torch.Tensor          # 0 on the active mesh's constrained slots
+    outer_dtype: torch.dtype
+
+    def vmult(self, b: torch.Tensor) -> torch.Tensor:
+        x = self.lsmg.vmult(b.to(self.keep.dtype)) * self.keep
+        return x.to(self.outer_dtype)
+
+    __call__ = vmult
+
+
+def solve_with_local_smoothing_hybrid(
+    params: RunParameters, fine_mesh: AdaptiveMesh, device: torch.device
+):
+    """HMG-local or HPMG-local solve on the hybrid engine, one device
+    (reference: solve_with_local_smoothing, multigrid_throughput.cc:
+    1670-1873).  HPMG-local chains the p-levels of the active mesh above the
+    degree-1 LS hierarchy, whose V-cycle is their coarse solve.  Returns
+    (result, problem, [fine]); the LS hierarchy is ``result.ls_mg``, and
+    HPMG-local's p-level Multigrid ``result.mg``."""
+    t_setup = time.perf_counter()
+    outer_dtype = number_dtype(params.number_type)
+    level_dtype = number_dtype(params.mg_number_type)
+    p = params.fe_degree_fine
+    min_level = max(params.min_level, 0)
+    fine = build_level_hybrid(fine_mesh, p, device, level_dtype)
+    outer_op, rhs, problem = _outer_problem(params, fine, device)
+    if params.type == "HMG-local":
+        lsmg = build_local_smoothing_mg_hybrid(
+            fine.dofh, fine.fmt, params.mg_data, device, level_dtype, min_level
+        )
+        precond = PreconditionLS(lsmg, fine.op.constrained_keep, outer_dtype)
+        mg = None
+        n_levels = len(lsmg.levels)
+    else:
+        degrees = polynomial_coarsening_sequence(p, "bisect")
+        plevels = [
+            fine if d == p else build_level_hybrid(fine_mesh, d, device, level_dtype)
+            for d in degrees
+        ]
+        lsmg = build_local_smoothing_mg_hybrid(
+            plevels[0].dofh, plevels[0].fmt, params.mg_data, device, level_dtype,
+            min_level,
+        )
+        ls_precond = PreconditionLS(lsmg, plevels[0].op.constrained_keep, level_dtype)
+        mg = build_gc_preconditioner_hybrid(plevels, params.mg_data, coarse_solve=ls_precond)
+        precond = PreconditionMG(mg, outer_dtype)
+        n_levels = len(degrees) + len(lsmg.levels) - 1
+    result = _timed_solve(params, fine, outer_op, rhs, precond, n_levels, t_setup)
+    result.mg, result.ls_mg = mg, lsmg
+    return result, problem, [fine]
 
 
 def run(params: RunParameters, device: str | torch.device | None = None):
     """Reference run<dim, ...>() equivalent: build the mesh, dispatch the
-    solver (multigrid_throughput.cc:2019-2396)."""
+    solver (multigrid_throughput.cc:2019-2396).  ``device`` None means the
+    card; a CPU run passes ``"cpu"``."""
     device = resolve_device(device)
     mesh = generators.create(
         params.geometry_type, params.dim, params.n_ref_global, params.n_ref_local
@@ -382,20 +457,19 @@ def dispatch_solve(params: RunParameters, mesh: AdaptiveMesh, device: torch.devi
         raise NotImplementedError(
             "2D runs on the gather engine, not ported yet (ROADMAP item 11)"
         )
-    if params.type in ("HMG-global", "PMG", "HPMG"):
-        # float32 contractions must stay full precision: TF32 raised CG from 3
-        # to 9 iterations on the reference (ops/hybrid.py:44-47 there)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        return solve_with_global_coarsening_hybrid(params, mesh, device)
-    items = {
-        "HMG-local": "8, local smoothing",
-        "HPMG-local": "8, local smoothing",
-        "AMG": "10, AMG",
-        "AMGPETSc": "10, AMG",
-    }
-    if params.type in items:
+    if params.type in ("AMG", "AMGPETSc"):
         raise NotImplementedError(
-            f"solver type {params.type!r} is not ported yet (ROADMAP item "
-            f"{items[params.type]})"
+            f"solver type {params.type!r} is not ported yet (ROADMAP item 10, AMG)"
         )
+    if params.n_shards not in (0, 1):
+        raise NotImplementedError(
+            "sharded solves are not ported yet (ROADMAP item 13, multi-device)"
+        )
+    # float32 contractions must stay full precision: TF32 raised CG from 3
+    # to 9 iterations on the reference (ops/hybrid.py:44-47 there)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if params.type in ("HMG-global", "PMG", "HPMG"):
+        return solve_with_global_coarsening_hybrid(params, mesh, device)
+    if params.type in ("HMG-local", "HPMG-local"):
+        return solve_with_local_smoothing_hybrid(params, mesh, device)
     raise ValueError(f"unknown solver type {params.type!r}")

@@ -18,8 +18,12 @@ its exact transpose), executed patch-structured:
 
 ``hybrid_transfer_tables`` builds the host tables (NumPy, the JAX package's
 construction without its TPU lane-routing matrices); ``HybridTransfer``
-applies them.  Every padded row index points at an explicit zero row that
-the apply appends, never out of range.
+applies them.  With ``ls_mode`` (the local-smoothing levels, whose
+Dirichlet set is boundary plus refinement edge) the same tables run without
+the constraints: prolong skips C and the constrained mask, restrict masks by
+ownership only, and the coarse tail is the exchange alone.  Every padded
+row index points at an explicit zero row that the apply appends, never out
+of range.
 """
 
 from __future__ import annotations
@@ -54,8 +58,9 @@ class HybridTransfer:
     )
 
     def __init__(self, t: dict, meta: dict, fine_op: HybridOperator,
-                 coarse_op: HybridOperator):
+                 coarse_op: HybridOperator, ls_mode: bool = False):
         self.coarse_op = coarse_op
+        self.ls_mode = ls_mode
         self.fine_constrained_keep = fine_op.constrained_keep
         self.fine_owner = fine_op.owner
         for k, v in meta.items():
@@ -66,10 +71,12 @@ class HybridTransfer:
     @classmethod
     def from_arrays(cls, tables: dict, meta: dict, fine_op: HybridOperator,
                     coarse_op: HybridOperator, device: torch.device,
-                    dtype: torch.dtype) -> "HybridTransfer":
+                    dtype: torch.dtype, ls_mode: bool = False) -> "HybridTransfer":
         """Build from host tables (``hybrid_transfer_tables`` or the JAX
         transfer's data leaves as NumPy arrays, same keys)."""
-        return cls(tables_to_device(tables, device, dtype), meta, fine_op, coarse_op)
+        return cls(
+            tables_to_device(tables, device, dtype), meta, fine_op, coarse_op, ls_mode
+        )
 
     def _interp_sub(self, sub_vals: torch.Tensor) -> torch.Tensor:
         """[n, sub, sub, sub] -> [n, S_f, S_f, S_f] via three axis GEMMs."""
@@ -85,7 +92,8 @@ class HybridTransfer:
 
     def prolong(self, uc: torch.Tensor) -> torch.Tensor:
         cop = self.coarse_op
-        uc = cop.apply_c(uc)
+        if not self.ls_mode:
+            uc = cop.apply_c(uc)
         dtype, dev = uc.dtype, uc.device
         S_c, S_f, sub = self.S_c, self.S_f, self.sub
         ps_f = self.NP_f * S_f**3
@@ -129,11 +137,16 @@ class HybridTransfer:
                 us_c = cop._singles(uc)
                 for sidx, crow, M in self.single_fast:
                     out_s[sidx] = torch.matmul(us_c[crow], M.T)
+        if self.ls_mode:
+            return out
         return out * self.fine_constrained_keep
 
     def restrict(self, rf: torch.Tensor) -> torch.Tensor:
         cop = self.coarse_op
-        rf = rf * self.fine_constrained_keep * self.fine_owner
+        if self.ls_mode:
+            rf = rf * self.fine_owner
+        else:
+            rf = rf * self.fine_constrained_keep * self.fine_owner
         dtype, dev = rf.dtype, rf.device
         S_c, S_f, sub = self.S_c, self.S_f, self.sub
         acc = torch.zeros(self.n_slots_c, dtype=dtype, device=dev)
@@ -184,8 +197,11 @@ class HybridTransfer:
 
     def _restrict_coarse_tail(self, acc: torch.Tensor) -> torch.Tensor:
         """Coarse-side assembly after the restriction accumulator: C^T on
-        structured faces, exchange, per-node C^T."""
+        structured faces, exchange, per-node C^T (the exchange alone in
+        ``ls_mode``)."""
         cop = self.coarse_op
+        if self.ls_mode:
+            return cop.exchange(acc)
         acc = cop.apply_ct_faces(acc)
         acc = cop.exchange(acc)
         return cop.apply_ct(acc)
@@ -540,11 +556,11 @@ def hybrid_transfer_tables(
 
 
 def make_hybrid_transfer(fine_fmt, coarse_fmt, fine_op: HybridOperator,
-                         coarse_op: HybridOperator) -> HybridTransfer:
+                         coarse_op: HybridOperator, ls_mode: bool = False) -> HybridTransfer:
     """Host tables -> device transfer on the operators' device and dtype."""
     tables, meta = hybrid_transfer_tables(fine_fmt, coarse_fmt)
     return HybridTransfer.from_arrays(
-        tables, meta, fine_op, coarse_op, coarse_op.device, coarse_op.dtype
+        tables, meta, fine_op, coarse_op, coarse_op.device, coarse_op.dtype, ls_mode
     )
 
 

@@ -45,12 +45,19 @@ def estimate_eigenvalue_range(
     use_op_dot: bool = False,
 ) -> tuple[float, float]:
     """Largest/smallest eigenvalue estimate of D^{-1} A via CG-Lanczos on
-    the start vector ``b0``; one host transfer of the coefficients."""
+    the start vector ``b0``; one host transfer of the coefficients.
+
+    A step whose residual product r.z falls below the smallest normal
+    number ends the tridiagonal: CG has converged exactly there.  The JAX
+    package's backends flush such a subnormal to zero and the next step
+    breaks down; torch keeps subnormals (on the CPU and on CUDA), and the
+    steps after them are rounding noise that can put lambda_max far above
+    the spectrum (a 216-slot float32 level gave 37 instead of 1.21)."""
     dot = op.dot if use_op_dot else (lambda a, c: torch.sum(a * c))
     r = b0.to(inv_diag.dtype)
     p = inv_diag * r
     rz = dot(r, p)
-    alphas, betas = [], []
+    alphas, betas, rzs = [], [], []
     for _ in range(n_iterations):
         ap = op.vmult(p)
         alpha = rz / dot(p, ap)
@@ -62,8 +69,11 @@ def estimate_eigenvalue_range(
         rz = rz_new
         alphas.append(alpha)
         betas.append(beta)
-    coeffs = torch.stack([torch.stack(alphas), torch.stack(betas)]).cpu().numpy()
-    return _extremes_from_cg_coefficients(coeffs[0], coeffs[1])
+        rzs.append(rz_new)
+    coeffs = torch.stack([torch.stack(v) for v in (alphas, betas, rzs)]).cpu().numpy()
+    sub = np.nonzero(np.abs(coeffs[2]) < torch.finfo(inv_diag.dtype).tiny)[0]
+    k = int(sub[0]) + 1 if len(sub) else n_iterations
+    return _extremes_from_cg_coefficients(coeffs[0, :k], coeffs[1, :k])
 
 
 def estimate_eigenvalue_ranges(

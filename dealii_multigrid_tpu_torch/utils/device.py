@@ -8,13 +8,11 @@ import torch
 def resolve_device(device: str | torch.device | None) -> torch.device:
     """The torch device a run asked for.
 
-    ``None`` means ``cuda:0`` when a card is present and the CPU otherwise.
-    Asking for a CUDA device without a card raises: the port never falls
-    back to the CPU behind the caller's back.
+    ``None`` means ``cuda:0``; a CPU run asks for ``"cpu"``.  Asking for a
+    CUDA device without a card raises: the port never falls back to the CPU
+    behind the caller's back.
     """
-    if device is None:
-        return torch.device("cuda:0" if torch.cuda.is_available() else "cpu")
-    dev = torch.device(device)
+    dev = torch.device("cuda:0" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {dev} requested but torch.cuda.is_available() is False; "

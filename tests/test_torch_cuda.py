@@ -134,6 +134,12 @@ def small_params(mg_type, r, p, number, mg_number):
     ("HMG-global", 3, 2, "df32", "float", 1e-5),
     ("HPMG", 3, 2, "mixed", "float", 1e-5),
     ("HPMG", 3, 2, "df32", "float", 1e-5),
+    ("HMG-local", 3, 4, "double", "double", 1e-8),
+    ("HPMG-local", 3, 4, "double", "double", 1e-8),
+    ("HMG-local", 3, 2, "mixed", "float", 1e-5),
+    ("HMG-local", 3, 2, "df32", "float", 1e-5),
+    ("HPMG-local", 3, 2, "mixed", "float", 1e-5),
+    ("HPMG-local", 3, 2, "df32", "float", 1e-5),
 ])
 def test_small_solve_on_card_matches_cpu(cuda, mg_type, r, p, number, mg_number, tol):
     prm = small_params(mg_type, r, p, number, mg_number)

@@ -48,9 +48,13 @@ def test_cuda_device_without_card_raises():
 
 
 def test_cpu_and_default_devices():
+    """No device means the card: ``cuda:0`` with one, an error without."""
     assert resolve_device("cpu") == torch.device("cpu")
-    expect = "cuda" if torch.cuda.is_available() else "cpu"
-    assert resolve_device(None).type == expect
+    if torch.cuda.is_available():
+        assert resolve_device(None) == torch.device("cuda:0")
+    else:
+        with pytest.raises(RuntimeError, match="does not fall back"):
+            resolve_device(None)
 
 
 def test_chip_smoke_refuses_to_run_without_card():

@@ -77,8 +77,8 @@ def test_float_levels_under_double_outer_cg():
 @pytest.mark.parametrize(
     "field,value,item",
     [
-        ("type", "HPMG-local", "item 8"),
-        ("type", "HMG-local", "item 8"),
+        ("dim", 2, "item 11"),
+        ("n_shards", 2, "item 13"),
         ("type", "AMG", "item 10"),
         ("type", "AMGPETSc", "item 10"),
         ("mg_number_type", "bfloat16", "item 6"),
