@@ -40,7 +40,33 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
         mesh above the degree-1 LS hierarchy), double over float, 5
         repetitions: converged, one iteration count in all solves, the
         guard, launches as expected;
-  5. for every patch level of the b, d, f, h and i hierarchies (h and i
+     j. card against CPU, small, double, with a coarse solve that is
+        really AMG: truncated HPMG at r=4 p=4 (MinLevel 5 leaves the fine
+        mesh at p = 1, 2, 4; the coarse level has 1,008 DoFs) with the coarse
+        types amg, amg_petsc (2 cycles), cg_with_amg, cg and
+        cg_with_chebyshev, and the solver types AMG and AMGPETSc at r=4 p=2;
+        x to 1e-8, equal iteration counts.  The direct-solve limit
+        ``solvers.coarse.DIRECT_SOLVER_MAX_DOFS`` is lowered to 300 for this
+        comparison only (at the first mesh above the real limit, r=6, the
+        CPU side would take minutes);
+     k. PMG quadrant r=7 p=4 (17,551,967 DoFs; p = 4, 2, 1 on the fine
+        mesh, smoothed-aggregation AMG on 283,109 DoFs), NumberType mixed,
+        float levels, coarse type amg, 5 repetitions: converged, the guard,
+        one iteration count in all six solves, launches as expected; prints
+        the AMG hierarchy and the set-up split;
+     l. on k's hierarchy: coarse types cg_with_amg, and amg_petsc with 2
+        cycles: converged, one iteration count in all solves;
+     m. HPMG quadrant r=6 p=4, MinLevel 7, double over float levels: amg
+        with 1-4 cycles and amg_petsc with 2, beside the records' iteration
+        counts (results/parameters-hp-amg-trunc-tpu-part2.txt, -part3.txt);
+        fails on a row that did not converge;
+     n. AMG and AMGPETSc on quadrant r=7 p=1 (283,109 DoFs), double;
+     o. the CLI on two JSON files written to a temporary directory
+        (HMG-global r=7 p=4 float, and k's configuration, both with
+        ProfilePhases): two table rows with every column, and the phase sum
+        times the iteration count against the solve time (printed; held to
+        PHASE_SUM_LIMIT times it, see there);
+  5. for every patch level of the b, d, f, h, i and k hierarchies (h and i
      through ``result.mg`` and ``result.ls_mg``): the kernel on the level's
      own KS, MS and pscale against the plain version, its time, launches
      per solve and bound; then the kernels line, the card's name and power
@@ -52,9 +78,14 @@ The expected launch counts come from the same per-level entries
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from typing import NamedTuple
 
@@ -85,7 +116,8 @@ def card_line() -> str:
 
 
 def bench_params(n_ref: int, degree: int, number: str, reps: int,
-                 mg_type: str = "HMG-global", mg_number: str | None = None):
+                 mg_type: str = "HMG-global", mg_number: str | None = None,
+                 coarse: str = "amg", n_cycles: int = 1, min_level: int = -1):
     from dealii_multigrid_tpu_torch.utils.params import RunParameters
 
     prm = RunParameters()
@@ -93,9 +125,11 @@ def bench_params(n_ref: int, degree: int, number: str, reps: int,
     prm.geometry_type = "quadrant"
     prm.n_ref_global = n_ref
     prm.fe_degree_fine = degree
+    prm.min_level = min_level
     prm.number_type = number
     prm.mg_number_type = mg_number or number
-    prm.mg_data.coarse_solver.type = "amg"
+    prm.mg_data.coarse_solver.type = coarse
+    prm.mg_data.coarse_solver.n_cycles = n_cycles
     prm.mg_data.smoother.degree = 3
     prm.mg_data.cg_normal.reltol = 1e-4
     prm.mg_data.n_repetitions = reps
@@ -298,9 +332,11 @@ def norm_rel(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def check_solve(name: str, result, entries, launches: int, n_it: int | None = None,
-                setup: bool = True) -> None:
-    """The checks every full-size path makes, and its line of numbers."""
-    expect = expected_launches(entries, result.solve_iterations, setup)
+                setup: bool = True, extra_launches: int = 0) -> None:
+    """The checks every full-size path makes, and its line of numbers.
+    ``extra_launches``: launches the entries do not describe (a coarse CG on
+    the coarsest level's operator), counted by the caller."""
+    expect = expected_launches(entries, result.solve_iterations, setup) + extra_launches
     its = result.solve_iterations
     print(f"{name}: operators (label, NP, S, band, launches per iteration) "
           f"{[(e.label, e.op.NP, e.op.S, e.op.band, e.per_iteration) for e in entries]}",
@@ -359,6 +395,80 @@ def check_levels(name: str, entries, iterations: int, card: str, rng) -> None:
               f"per solve x {ms:.6f} ms = {n * ms:.4f} ms; bound {1e3 * b_ms:.2f} us ({b_by}), "
               f"roofline share {b_ms / ms:.4f}; card {card}", flush=True)
     print(f"{name}: stencil per solve {total:.4f} ms of kernel time; card {card}", flush=True)
+
+
+class CountingOp:
+    """An operator that counts its vmults (the coarse CG's, which launch the
+    stencil once each on a level with patches)."""
+
+    def __init__(self, op):
+        self.op = op
+        self.calls = 0
+
+    def vmult(self, x):
+        self.calls += 1
+        return self.op.vmult(x)
+
+    def dot(self, x, y):
+        return self.op.dot(x, y)
+
+
+def amg_of(solver):
+    """The AMGPreconditioner inside a coarse solver; fails where there is none."""
+    from dealii_multigrid_tpu_torch.solvers.coarse import find_amg
+
+    amg = find_amg(solver)
+    check(amg is not None, f"no AMG inside {type(solver).__name__}")
+    return amg
+
+
+def print_amg(name: str, amg, card: str) -> None:
+    rows = amg.describe()
+    print(f"{name}: AMG hierarchy, finest first (rows, widest row of A / P / P^T, MiB of "
+          f"device tables, omega) "
+          f"{[(d['rows'], d['K_A'], d['K_P'], d['K_PT'], round(d['bytes'] / 2**20, 2), round(d['omega'], 4)) for d in rows]}; "
+          f"dense coarsest factor {tuple(amg.chol.shape)} {amg.chol.dtype}, "
+          f"{amg.chol.numel() * amg.chol.element_size() / 2**20:.1f} MiB; tables "
+          f"{sum(d['bytes'] for d in rows) / 2**20:.1f} MiB; cycles {amg.n_cycles}; set-up seconds "
+          f"{ {k: round(v, 3) for k, v in amg.setup_seconds.items()} }; card {card}", flush=True)
+
+
+#: Phase o holds (sum of the MG phases) x iterations to this multiple of the
+#: solve time.  The phases of one V-cycle should add up to less than a CG
+#: iteration; but the solve time is the best of five on a host whose speed
+#: moves by tens of percent within seconds, and the phases are timed after
+#: it, so the ratio read 0.85-1.52 over the runs of scripts/probe_phases.py
+#: and of this script.  The line prints the ratio and whether it was below 1.
+PHASE_SUM_LIMIT = 2.0
+
+#: the CLI's columns with ProfilePhases and Verbosity on, in order
+CLI_COLUMNS = (
+    "dim type geometry n_cells degree n_ref_global n_ref_local min_level coarse_type n_cycles "
+    "smoother_deg reltol number mg_number policy n_cells_hn n_cells_n n_dofs n_levels "
+    "sub_comm_size n_iterations converged time time_per_it time_cg throughput time_pre "
+    "time_residuum time_res time_cs time_pro time_edge_pro time_post time_to_mg time_to_global "
+    "workload_eff workload_path_max workload_path_max_node vertical_eff horizontal_eff mem_total"
+).split()
+
+
+def parse_last_table(text: str) -> list:
+    """Rows (dicts) of the last table in the CLI's output; cells are cut at
+    the header's column offsets, so an empty cell stays empty."""
+    lines = text.splitlines()
+    top = max(i for i, ln in enumerate(lines) if ln.startswith("dim "))
+    header = lines[top]
+    names = header.split()
+    starts, pos = [], 0
+    for nm in names:
+        pos = header.index(nm, pos)
+        starts.append(pos)
+        pos += len(nm)
+    ends = starts[1:] + [None]
+    return [
+        {nm: ln[a:b].strip() for nm, a, b in zip(names, starts, ends)}
+        for ln in lines[top + 1:] if ln.strip()
+    ]
+
 
 
 def main() -> int:
@@ -564,6 +674,192 @@ def main() -> int:
         check_levels(f"{mg_type} r=7", entries, res.n_iterations, card, rng)
         del res, _problem, levels, ls_levels, entries
         torch.cuda.empty_cache()
+
+    # 4j. card against CPU, small, double, the coarse solve really AMG
+    from dealii_multigrid_tpu_torch import cli
+    from dealii_multigrid_tpu_torch.solvers import coarse as coarse_mod
+
+    real_limit = coarse_mod.DIRECT_SOLVER_MAX_DOFS
+    coarse_mod.DIRECT_SOLVER_MAX_DOFS = 300
+    print(f"phase j: solvers.coarse.DIRECT_SOLVER_MAX_DOFS lowered from {real_limit} to 300 for "
+          "this comparison, so that the 1,008-DoF coarse level gets a multi-level AMG", flush=True)
+    try:
+        for mg_type, r, p, coarse, n_cycles, min_level in (
+            ("HPMG", 4, 4, "amg", 1, 5),
+            ("HPMG", 4, 4, "amg_petsc", 2, 5),
+            ("HPMG", 4, 4, "cg_with_amg", 1, 5),
+            ("HPMG", 4, 4, "cg", 1, 5),
+            ("HPMG", 4, 4, "cg_with_chebyshev", 1, 5),
+            ("AMG", 4, 2, "amg", 1, -1),
+            ("AMGPETSc", 4, 2, "amg", 1, -1),
+        ):
+            small = bench_params(r, p, "double", 1, mg_type, "double", coarse, n_cycles, min_level)
+            res_gpu, _, lv_gpu = api.run(small, dev)
+            res_cpu, _, _ = api.run(small, "cpu")
+            rel = max_rel(res_gpu.x, res_cpu.x)
+            solver = res_gpu.amg if res_gpu.mg is None else res_gpu.mg.coarse_solve
+            amg = amg_of(solver) if coarse not in ("cg", "cg_with_chebyshev") else None
+            n_amg = len(amg.levels) if amg is not None else 0
+            print(f"small solve {mg_type} r={r} p={p} coarse {coarse} x{n_cycles} MinLevel {min_level}: "
+                  f"levels {res_gpu.n_levels}, coarse level {lv_gpu[0].dofh.n_dofs} DoFs, AMG levels "
+                  f"{n_amg}, card {res_gpu.n_iterations} it, cpu {res_cpu.n_iterations} it, "
+                  f"max rel diff {rel:.3e} (limit 1e-08)", flush=True)
+            check(res_gpu.converged and res_gpu.n_iterations == res_cpu.n_iterations and rel <= 1e-8,
+                  f"card solve disagrees with the CPU solve ({mg_type} coarse {coarse})")
+            check(amg is None or n_amg >= 2, f"{mg_type} coarse {coarse}: the coarse solve is not AMG")
+    finally:
+        coarse_mod.DIRECT_SOLVER_MAX_DOFS = real_limit
+    del res_gpu, res_cpu, lv_gpu, solver, amg
+    torch.cuda.empty_cache()
+
+    # 4k. PMG quadrant r=7 p=4 mixed over float levels, AMG on the fine mesh at p=1
+    prm = bench_params(7, 4, "mixed", 5, "PMG", "float")
+    before = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (res_k, _problem, levels), launches = counted(lambda: api.run(prm, dev))
+    wall = time.perf_counter() - t0
+    paths["pmg_r7_mixed_amg"] = launches
+    check([lv.degree for lv in levels] == [1, 2, 4] and levels[0].dofh.n_dofs == 283_109
+          and res_k.n_dofs == 17_551_967,
+          f"PMG r=7 p=4 plan: {[(lv.degree, lv.dofh.n_dofs) for lv in levels]}")
+    entries = gc_entries(levels, prm)
+    check_solve("PMG r=7 mixed amg", res_k, entries, launches)
+    amg_k = amg_of(res_k.mg.coarse_solve)
+    check(len(amg_k.levels) >= 2 and amg_k.levels[0].A.shape[0] == 283_109,
+          "PMG r=7: the coarse solve is not AMG on the p=1 fine mesh")
+    print_amg("PMG r=7", amg_k, card)
+    print(f"PMG quadrant r=7 p=4 mixed/float coarse amg: n_dofs {res_k.n_dofs}, levels {len(levels)}, "
+          f"coarse {levels[0].dofh.n_dofs} DoFs, iterations {res_k.n_iterations}, solve {res_k.time:.6f} s "
+          f"(reps {[round(t, 6) for t in res_k.time_per_rep]}), {res_k.throughput / 1e6:.3f} MDoF/s, "
+          f"setup {res_k.setup_time:.1f} s, run wall {wall:.1f} s, "
+          f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"(allocated before the run {before:.2f} GiB); card {card}", flush=True)
+    check_levels("PMG r=7", entries, res_k.n_iterations, card, rng)
+
+    # 4l. other coarse types on k's hierarchy (the outer operator, the
+    # right-hand side, transfers and smoothers are k's)
+    fine = levels[-1]
+    outer_op = api.MixedPrecisionOperator(fine.op)
+    prm_l = bench_params(7, 4, "mixed", 2, "PMG", "float", n_cycles=2)
+    for kind in ("cg_with_amg", "amg_petsc"):
+        t0 = time.perf_counter()
+        coarse = api._hybrid_coarse_solver(kind, levels[0], prm_l.mg_data)
+        counter = None
+        if kind == "cg_with_amg":
+            counter = CountingOp(coarse.op)
+            coarse = dataclasses.replace(coarse, op=counter)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        print_amg(f"PMG r=7 coarse {kind}", amg_of(coarse), card)
+        mg_l = dataclasses.replace(res_k.mg, coarse_solve=coarse)
+        res_l, launches = counted(lambda: api.mg_solve(
+            outer_op, res_k.rhs_used, PreconditionMG(mg_l, torch.float64), prm_l.mg_data,
+            n_levels=len(levels), n_dofs=fine.dofh.n_dofs,
+        ))
+        paths[f"pmg_r7_mixed_{kind}"] = launches
+        res_l.x = fine.to_global(res_l.x)
+        extra = counter.calls if counter is not None else 0
+        check_solve(f"PMG r=7 mixed {kind}", res_l, entries, launches, setup=False,
+                    extra_launches=extra)
+        rel = norm_rel(res_l.x, res_k.x)
+        print(f"PMG quadrant r=7 p=4 mixed/float coarse {kind} (cycles {prm_l.mg_data.coarse_solver.n_cycles}) "
+              f"on the same hierarchy: iterations {res_l.solve_iterations} (amg: {res_k.n_iterations}), "
+              f"coarse-CG operator applications in the run {extra}, x vs amg {rel:.3e} relative, "
+              f"solve {res_l.time:.6f} s (reps {[round(t, 6) for t in res_l.time_per_rep]}), "
+              f"coarse build {t_build:.1f} s; card {card}", flush=True)
+        check(rel <= 1e-3, f"coarse {kind} disagrees with coarse amg on the PMG r=7 hierarchy")
+        del coarse, counter, mg_l, res_l
+    del res_k, amg_k, fine, outer_op, _problem, levels, entries
+    torch.cuda.empty_cache()
+
+    # 4m. truncated HPMG quadrant r=6 p=4 (MinLevel 7: the fine mesh only),
+    # double over float levels, beside the records' iteration counts
+    for coarse, n_cycles, record in (
+        ("amg", 1, 5), ("amg", 2, 4), ("amg", 3, 4), ("amg", 4, 4), ("amg_petsc", 2, 8),
+    ):
+        prm = bench_params(6, 4, "double", 2, "HPMG", "float", coarse, n_cycles, 7)
+        torch.cuda.reset_peak_memory_stats()
+        (res, _problem, levels), launches = counted(lambda: api.run(prm, dev))
+        key = f"hpmg_r6_trunc_{coarse}_{n_cycles}"
+        paths[key] = launches
+        check(len(levels) == 3 and levels[0].dofh.n_dofs == 38_402 and res.n_dofs == 2_305_421,
+              f"truncated HPMG r=6 plan: {[(lv.degree, lv.dofh.n_dofs) for lv in levels]}")
+        entries = gc_entries(levels, prm)
+        check_solve(f"HPMG r=6 MinLevel 7 {coarse} x{n_cycles}", res, entries, launches)
+        amg = amg_of(res.mg.coarse_solve)
+        print(f"HPMG quadrant r=6 p=4 MinLevel 7 double/float coarse {coarse} cycles {n_cycles}: "
+              f"iterations {res.n_iterations} (record {record}, "
+              f"{'equal' if res.n_iterations == record else 'DIFFERENT'}), AMG levels "
+              f"{[d['rows'] for d in amg.describe()]}, solve {res.time:.6f} s, setup {res.setup_time:.1f} s, "
+              f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card}", flush=True)
+        del res, _problem, levels, entries, amg
+        torch.cuda.empty_cache()
+
+    # 4n. AMG and AMGPETSc alone on quadrant r=7 p=1, double (gather engine:
+    # no stencil launch)
+    for mg_type in ("AMG", "AMGPETSc"):
+        prm = bench_params(7, 1, "double", 3, mg_type, "double")
+        torch.cuda.reset_peak_memory_stats()
+        (res, _problem, levels), launches = counted(lambda: api.run(prm, dev))
+        its = res.solve_iterations
+        amg = amg_of(res.amg)
+        print_amg(f"{mg_type} r=7 p=1", amg, card)
+        print(f"{mg_type} quadrant r=7 p=1 double: n_dofs {res.n_dofs}, solve iterations {its}, "
+              f"loop residual {res.residual_norm:.4e}, true residual {res.true_residual:.4e} "
+              f"(allowance {res.guard_threshold:.4e}), solve {res.time:.6f} s "
+              f"(reps {[round(t, 6) for t in res.time_per_rep]}), {res.throughput / 1e6:.3f} MDoF/s, "
+              f"setup {res.setup_time:.1f} s, peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+              f"stencil launches {launches}; card {card}", flush=True)
+        check(res.converged and len(set(its)) == 1 and res.n_dofs == 283_109 and res.n_levels == 1,
+              f"{mg_type} r=7 p=1: converged {res.converged}, iterations {its}")
+        check(res.true_residual <= res.guard_threshold, f"{mg_type} r=7 p=1: true-residual guard failed")
+        check(launches == 0, f"{mg_type} runs on the gather engine but launched the stencil")
+        check(len(amg.levels) >= 2 and bool(torch.isfinite(res.x).all()) and res.x.is_cuda,
+              f"{mg_type} r=7 p=1: not an AMG solve on the card")
+        del res, _problem, levels, amg
+        torch.cuda.empty_cache()
+
+    # 4o. the CLI: two parameter files, one cumulative table
+    common = {"GeometryType": "quadrant", "NRefGlobal": 7, "Degree": 4, "SmootherDegree": 3,
+              "RelativeTolerance": 1e-4, "MGNumberType": "float", "CoarseGridSolverType": "amg",
+              "NRepetitions": 5, "ProfilePhases": True}
+    with tempfile.TemporaryDirectory() as tmp:
+        files = []
+        for i, extra in enumerate((
+            {"Type": "HMG-global", "NumberType": "float"},
+            {"Type": "PMG", "NumberType": "mixed"},
+        )):
+            files.append(os.path.join(tmp, f"input_{i:04d}.json"))
+            with open(files[-1], "w") as f:
+                json.dump({**common, **extra}, f)
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc, launches = counted(lambda: cli.main(files))
+    print(text.getvalue(), flush=True)
+    paths["cli_hmg_global_and_pmg_r7"] = launches
+    check(rc == 0, f"the CLI returned {rc}")
+    rows = parse_last_table(text.getvalue())
+    check(len(rows) == 2 and list(rows[0]) == CLI_COLUMNS,
+          f"CLI table: {len(rows)} rows, columns {list(rows[0]) if rows else None}")
+    for row, mg_type, n_levels in zip(rows, ("HMG-global", "PMG"), (8, 3)):
+        check(all(row[c] != "" for c in CLI_COLUMNS), f"CLI row {mg_type}: an empty cell in {row}")
+        check(row["type"] == mg_type and row["n_dofs"] == "17551967" and row["converged"] == "True"
+              and int(row["n_levels"]) == n_levels, f"CLI row {mg_type}: {row}")
+        phase_sum = sum(float(row[f"time_{ph}"]) for ph in
+                        ("pre", "residuum", "res", "cs", "pro", "edge_pro", "post", "to_mg", "to_global"))
+        n_it, t_solve = int(row["n_iterations"]), float(row["time"])
+        ratio = phase_sum * n_it / t_solve
+        print(f"CLI {mg_type} r=7 p=4: iterations {n_it}, solve {t_solve} s, MG phases of one V-cycle "
+              f"{ {ph: row['time_' + ph] for ph in ('pre', 'residuum', 'res', 'cs', 'pro', 'edge_pro', 'post', 'to_mg', 'to_global')} } "
+              f"s, sum x iterations {phase_sum * n_it:.6f} s = {ratio:.3f} of the solve "
+              f"({'below' if ratio < 1.0 else 'NOT below'} it); card {card}", flush=True)
+        check(0.0 < ratio < PHASE_SUM_LIMIT,
+              f"CLI {mg_type}: phase sum x iterations {phase_sum * n_it} s is not inside "
+              f"(0, {PHASE_SUM_LIMIT}) x the solve's {t_solve} s")
+    check(int(rows[0]["n_iterations"]) == 3, f"CLI HMG-global r=7: iterations {rows[0]['n_iterations']}")
+    check(launches > 0, "the CLI runs launched no stencil")
+    torch.cuda.empty_cache()
 
     # result lines
     print(json.dumps({"kernels": [{

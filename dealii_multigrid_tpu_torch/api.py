@@ -1,15 +1,17 @@
 """Solver assembly: build the multigrid hierarchy and run the benchmarked solve.
 
-Mirror of the JAX package's api.py hybrid path (reference L5 layer:
-run / solve_with_global_coarsening / solve_with_local_smoothing / mg_solve,
-multigrid_throughput.cc:817-2396) on torch: each level of an HMG-global,
-PMG, HPMG, HMG-local or HPMG-local hierarchy is a HybridOperator on one
-device, the outer solve is a Python-loop PCG in float, double, mixed
+Mirror of the JAX package's api.py (reference L5 layer: run /
+solve_with_global_coarsening / solve_with_local_smoothing / solve_with_amg /
+mg_solve, multigrid_throughput.cc:817-2396) on torch: each level of an
+HMG-global, PMG, HPMG, HMG-local or HPMG-local hierarchy is a HybridOperator
+on one device, with any of the reference's coarse-solver types below it; AMG
+and AMGPETSc precondition the gather-engine operator with the algebraic
+solver alone.  The outer solve is a Python-loop PCG in float, double, mixed
 (float64 vectors around the float32 operator) or df32 (double-single
 float32 pairs, solvers/twofloat.py), and timings are fenced with
-``torch.cuda.synchronize()``.  Solver types, number types and coarse types
-that are not ported yet raise NotImplementedError naming their ROADMAP
-item.
+``torch.cuda.synchronize()``.  What is not ported yet (2D multigrid,
+bfloat16 levels, sharded solves) raises NotImplementedError naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -28,10 +30,14 @@ from .models import poisson
 from .ops.hybrid import HybridOperator, make_hybrid_operator
 from .ops.hybrid_format import HybridFormat, build_hybrid_format, cell_slot_table
 from .ops.hybrid_transfer import make_hybrid_transfer
-from .ops.operator import compute_diagonal
+from .ops.operator import LaplaceOperator, compute_diagonal, make_operator
 from .solvers.cg import cg_solve
-from .solvers.chebyshev import ChebyshevSmoother, estimate_eigenvalue_ranges
-from .solvers.coarse import make_algebraic_solver
+from .solvers.chebyshev import (
+    ChebyshevSmoother,
+    estimate_eigenvalue_range,
+    estimate_eigenvalue_ranges,
+)
+from .solvers.coarse import make_algebraic_solver, make_cg_coarse_solver, make_coarse_solver
 from .solvers import twofloat
 from .solvers.local_smoothing import LocalSmoothingMGHybrid, build_local_smoothing_mg_hybrid
 from .solvers.multigrid import Multigrid, PreconditionMG
@@ -75,6 +81,30 @@ class MixedPrecisionOperator:
 
     def dot(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return torch.sum(x * self.owner.to(x.dtype) * y)
+
+
+@dataclass
+class LevelContext:
+    """One level of the gather engine: mesh + degree + operator + smoother data."""
+
+    mesh: AdaptiveMesh
+    degree: int
+    dofh: DoFHandler
+    hanging: Constraints
+    op: LaplaceOperator
+    inv_diag: torch.Tensor
+
+
+def build_level(
+    mesh: AdaptiveMesh, degree: int, device: torch.device, dtype: torch.dtype
+) -> LevelContext:
+    dofh = distribute_dofs(mesh, degree)
+    hanging = make_hanging_node_constraints(dofh)
+    op = make_operator(dofh, hanging, device, dtype)
+    inv_diag = torch.as_tensor(
+        1.0 / compute_diagonal(dofh, hanging), dtype=dtype, device=device
+    )
+    return LevelContext(mesh, degree, dofh, hanging, op, inv_diag)
 
 
 def gc_level_plan(
@@ -145,18 +175,45 @@ def build_level_hybrid(
     )
 
 
+def _hybrid_coarse_solver(kind: str, level: HybridLevel, mg_data: MultigridParameters):
+    """The coarse solve of a hybrid hierarchy by CoarseGridSolverType
+    (reference: multigrid_throughput.cc:909-1077), on slot vectors."""
+    op = level.op
+    if kind in ("amg", "amg_petsc", "direct", "cg_with_amg"):
+        alg = make_algebraic_solver(
+            level.dofh, level.hanging, op.dtype, op.device, mg_data,
+            force_direct=(kind == "direct"),
+            to_idx=level.to_global_idx, from_idx=level.from_global_idx,
+            flavor="boomer" if kind == "amg_petsc" else "sa",
+        )
+        if kind != "cg_with_amg":
+            return alg
+        prec = alg
+    elif kind == "cg_with_chebyshev":
+        sm = mg_data.smoother
+        lam_max, _ = estimate_eigenvalue_range(
+            op, level.inv_diag, level.eig_b0, sm.eig_cg_n_iterations, use_op_dot=True
+        )
+        prec = ChebyshevSmoother.create(
+            op, level.inv_diag,
+            max_eigenvalue=1.2 * lam_max,  # deal.II safety factor
+            degree=sm.degree,
+            smoothing_range=sm.smoothing_range,
+        )
+    elif kind == "cg":
+        prec = None
+    else:
+        raise ValueError(f"unknown coarse solver type {kind!r}")
+    cs = mg_data.coarse_solver
+    return make_cg_coarse_solver(op, prec, cs.maxiter, cs.abstol, cs.reltol, use_op_dot=True)
+
+
 def build_gc_preconditioner_hybrid(
     levels: list[HybridLevel], mg_data: MultigridParameters, coarse_solve=None
 ) -> Multigrid:
     """Transfers, smoothers and the coarse solve of a global-coarsening
     hierarchy.  A given ``coarse_solve`` (HPMG-local's LS V-cycle) replaces
-    the dense solve on ``levels[0]``, and nothing is built for that level."""
-    kind = mg_data.coarse_solver.type
-    if coarse_solve is None and kind not in ("amg", "direct"):
-        raise NotImplementedError(
-            f"coarse solver type {kind!r} is not ported yet (ROADMAP item 10, AMG "
-            "and the other coarse types)"
-        )
+    the configured one on ``levels[0]``, and nothing is built for that level."""
     transfers: list = [None]
     for l in range(1, len(levels)):
         transfers.append(
@@ -184,10 +241,7 @@ def build_gc_preconditioner_hybrid(
             )
         )
     if coarse_solve is None:
-        coarse_solve = make_algebraic_solver(
-            levels[0].dofh, levels[0].hanging,
-            levels[0].to_global_idx, levels[0].from_global_idx, levels[0].op.dtype,
-        )
+        coarse_solve = _hybrid_coarse_solver(mg_data.coarse_solver.type, levels[0], mg_data)
     return Multigrid(
         operators=tuple(lv.op for lv in levels),
         smoothers=tuple(smoothers),
@@ -213,6 +267,7 @@ class MGSolveResult:
     setup_time: float = 0.0     # host + device setup before the first solve, s
     mg: object = None           # the global-coarsening Multigrid (None on HMG-local)
     ls_mg: object = None        # the LocalSmoothingMGHybrid of HMG-local and HPMG-local
+    amg: object = None          # the algebraic solver of AMG and AMGPETSc
     rhs_used: torch.Tensor | None = None
 
 
@@ -232,8 +287,10 @@ def mg_solve(
     """Warm-up solve + best-of-n_repetitions timed CG, the reference's
     benchmark protocol (multigrid_throughput.cc:1140-1268).
 
-    ``fine_op`` is a HybridOperator or a MixedPrecisionOperator.  A
-    twofloat.TF right-hand side selects the df32 CG: the operator and
+    ``fine_op`` is a HybridOperator, a MixedPrecisionOperator or (AMG,
+    AMGPETSc) a gather-engine LaplaceOperator, whose dot is the plain one;
+    the preconditioner is anything with a ``vmult``.  A twofloat.TF
+    right-hand side selects the df32 CG: the operator and
     preconditioner apply in plain float32, and x rounds to float32 on the
     way out."""
     ctrl = mg_data.cg_parameter_study if mg_data.do_parameter_study else mg_data.cg_normal
@@ -440,6 +497,36 @@ def solve_with_local_smoothing_hybrid(
     return result, problem, [fine]
 
 
+def solve_with_amg(params: RunParameters, fine_mesh: AdaptiveMesh, device: torch.device):
+    """AMG or AMGPETSc: a single-level solve on the gather engine, CG
+    preconditioned by the algebraic solver alone (reference: solve_with_amg,
+    multigrid_throughput.cc:1877-1966).  AMGPETSc selects the
+    BoomerAMG-parameterized flavour (amg.build_amg_boomer), AMG the
+    Trilinos-ML-default analog.  Returns (result, problem, [fine])."""
+    if params.number_type == "df32":
+        raise ValueError(
+            "NumberType=df32 is implemented on the hybrid engine solves; "
+            "use NumberType=mixed for AMG"
+        )
+    t_setup = time.perf_counter()
+    outer_dtype = number_dtype(params.number_type)
+    fine = build_level(fine_mesh, params.fe_degree_fine, device, outer_dtype)
+    problem = poisson.make_problem(fine.dofh, fine.hanging, fine.op, params.simulation_type)
+    solver = make_coarse_solver(
+        "amg_petsc" if params.type == "AMGPETSc" else "amg",
+        fine.op, fine.dofh, fine.hanging, mg_data=params.mg_data, dtype=outer_dtype,
+    )
+    _fence(device)
+    setup_time = time.perf_counter() - t_setup
+    result = mg_solve(
+        fine.op, problem.rhs, solver, params.mg_data, n_levels=1, n_dofs=fine.dofh.n_dofs
+    )
+    result.setup_time = setup_time
+    result.rhs_used = problem.rhs
+    result.amg = solver
+    return result, problem, [fine]
+
+
 def run(params: RunParameters, device: str | torch.device | None = None):
     """Reference run<dim, ...>() equivalent: build the mesh, dispatch the
     solver (multigrid_throughput.cc:2019-2396).  ``device`` None means the
@@ -453,14 +540,6 @@ def run(params: RunParameters, device: str | torch.device | None = None):
 
 def dispatch_solve(params: RunParameters, mesh: AdaptiveMesh, device: torch.device):
     """The reference's solver-type switch (multigrid_throughput.cc:2337-2353)."""
-    if params.dim != 3:
-        raise NotImplementedError(
-            "2D runs on the gather engine, not ported yet (ROADMAP item 11)"
-        )
-    if params.type in ("AMG", "AMGPETSc"):
-        raise NotImplementedError(
-            f"solver type {params.type!r} is not ported yet (ROADMAP item 10, AMG)"
-        )
     if params.n_shards not in (0, 1):
         raise NotImplementedError(
             "sharded solves are not ported yet (ROADMAP item 13, multi-device)"
@@ -468,6 +547,13 @@ def dispatch_solve(params: RunParameters, mesh: AdaptiveMesh, device: torch.devi
     # float32 contractions must stay full precision: TF32 raised CG from 3
     # to 9 iterations on the reference (ops/hybrid.py:44-47 there)
     torch.backends.cuda.matmul.allow_tf32 = False
+    if params.type in ("AMG", "AMGPETSc"):
+        return solve_with_amg(params, mesh, device)
+    if params.dim != 3:
+        raise NotImplementedError(
+            "2D multigrid runs on the gather engine, whose transfers are not "
+            "ported yet (ROADMAP item 11)"
+        )
     if params.type in ("HMG-global", "PMG", "HPMG"):
         return solve_with_global_coarsening_hybrid(params, mesh, device)
     if params.type in ("HMG-local", "HPMG-local"):

@@ -1,4 +1,4 @@
-"""Poisson model problems: right-hand sides and their hybrid-layout assembly.
+"""Poisson model problems: right-hand sides and their assembly on both engines.
 
 The reference's simulation types (multigrid_throughput.cc:2286-2303):
   * "Constant": f = 1, homogeneous Dirichlet BC;
@@ -19,7 +19,7 @@ import torch
 
 from ..mesh.dof import Constraints, DoFHandler
 from ..ops import element
-from ..ops.operator import split_boundary_constraints
+from ..ops.operator import LaplaceOperator, distribute, split_boundary_constraints
 
 _WIDTH = 0.1
 _CENTER = -0.5
@@ -45,6 +45,10 @@ def gaussian_rhs(x: torch.Tensor) -> torch.Tensor:
 
 def constant_rhs(x: torch.Tensor) -> torch.Tensor:
     return torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
+
+
+def zero_fn(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
 
 
 @dataclass
@@ -88,6 +92,57 @@ def l2_error(problem: PoissonProblem, u_full: np.ndarray) -> float:
     uq = np.asarray(u_full, np.float64)[dofh.cell_dofs] @ B3.T          # [nc, nq]
     eq = uq - problem.exact_fn(pts)
     return float(np.sqrt(np.sum(eq * eq * jxw)))
+
+
+def assemble_problem(
+    dofh: DoFHandler,
+    hanging: Constraints,
+    op: LaplaceOperator,
+    rhs_fn: Callable,
+    bc_fn: Callable,
+    exact_fn: Callable | None = None,
+) -> PoissonProblem:
+    """RHS and inhomogeneity lift on the gather engine, in the global layout
+    (reference: operator.h:362-447)."""
+    dtype, device = op.dtype, op.device
+    B3, qp, qw, lo, h = _cell_geometry(dofh)
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    lo_d, h_d, qp_d, qw_d = dev(lo), dev(h), dev(qp), dev(qw)
+    pts = lo_d[:, None, :] + h_d[:, None, None] * qp_d[None, :, :]
+    jxw = (h_d[:, None] ** dofh.dim) * qw_d[None, :]
+    # raw cell integrals of f * phi
+    b_cell = torch.matmul(rhs_fn(pts) * jxw, dev(B3))              # [nc, nloc]
+    F = torch.zeros(dofh.n_dofs, dtype=dtype, device=device)
+    F.index_add_(0, op.cell_dofs.reshape(-1), b_cell.reshape(-1))
+    # Dirichlet lift: x0 interpolates g on the boundary, then hanging
+    # distribution makes it a conforming FE function
+    x0 = torch.zeros(dofh.n_dofs, dtype=dtype, device=device)
+    x0[op.dirichlet] = bc_fn(dev(dofh.points)[op.dirichlet])
+    x0 = distribute(x0, op.hanging)
+    # constrained RHS: C^T (F - A_raw x0), zero on constrained DoFs
+    b = op.apply_ct(F - op.cell_apply_raw(x0))
+    b[op.constrained] = 0
+    hang, _ = split_boundary_constraints(dofh, hanging)
+    return PoissonProblem(dofh, b, x0.double().cpu().numpy(), exact_fn, hang)
+
+
+def make_problem(
+    dofh: DoFHandler,
+    hanging: Constraints,
+    op: LaplaceOperator,
+    simulation_type: str = "Constant",
+) -> PoissonProblem:
+    """Dispatch by SimulationType config key (multigrid_throughput.cc:2286-2303)."""
+    if simulation_type == "Constant":
+        return assemble_problem(dofh, hanging, op, constant_rhs, zero_fn, None)
+    if simulation_type == "Gaussian":
+        return assemble_problem(
+            dofh, hanging, op, gaussian_rhs, gaussian_solution, gaussian_solution
+        )
+    raise ValueError(f"unknown SimulationType {simulation_type!r}")
 
 
 def assemble_problem_hybrid(

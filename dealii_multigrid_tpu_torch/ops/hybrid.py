@@ -59,6 +59,9 @@ class HybridOperator:
         "use_ssweep", "use_cross", "NP", "NS", "S", "nloc", "n_slots", "n_dofs",
         "sf_levels", "sf_patch_rows_meta", "sf_c_rounds", "sf_ct_rounds",
     )
+    #: the host layout the tables were built from (make_hybrid_operator sets
+    #: it; the phase profilers draw consistent vectors through it)
+    fmt = None
 
     def __init__(
         self, t: dict, meta: dict, device: torch.device, dtype: torch.dtype, band: int
@@ -308,5 +311,7 @@ def make_hybrid_operator(fmt, hanging, device, dtype) -> HybridOperator:
     from .hybrid_format import hybrid_operator_tables
 
     tables, meta = hybrid_operator_tables(fmt, hanging)
-    return HybridOperator.from_arrays(tables, meta, device, dtype)
+    op = HybridOperator.from_arrays(tables, meta, device, dtype)
+    op.fmt = fmt
+    return op
 

@@ -1,18 +1,120 @@
-"""Host-side constraint helpers of the Laplace operator.
+"""Matrix-free Laplace operator of the gather engine, and its host helpers.
 
-The port keeps only the two host functions the hybrid path needs:
-``split_boundary_constraints`` (Dirichlet over hanging priority) and the
-exact constrained diagonal ``compute_diagonal`` (reference:
-include/operator.h:228-242).  The gather engine waits for its own slice.
+Capability mirror of the reference's ``Operator<dim, n_components, Number>``
+(include/operator.h:11-557): constrained vmult with identity on constrained
+DoFs and the inverse-diagonal computation.  The cell loop is ``gather ->
+[n_cells, n_loc] @ [n_loc, n_loc] GEMM (one Cartesian reference element
+matrix) -> index_add_``; constraints are separate padded gather and scatter
+passes over the (few) constrained DoFs.  The hybrid patch engine
+(ops/hybrid.py) is the fast path in 3D; this operator carries the "AMG" and
+"AMGPETSc" solver types, in 2D and 3D.  ``split_boundary_constraints`` and
+the exact constrained diagonal ``compute_diagonal`` serve both engines.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
+import torch
 
 from ..mesh.dof import Constraints, DoFHandler
 from . import element
 
+
+@dataclass(frozen=True)
+class ConstraintTable:
+    """Padded hanging-node constraint table on the device.
+
+    u[slave] = sum_k weights[., k] * u[masters[., k]]; padding entries carry
+    master 0 and weight 0.
+    """
+
+    slave: torch.Tensor    # int64 [n_s]
+    masters: torch.Tensor  # int64 [n_s, K]
+    weights: torch.Tensor  # float [n_s, K]
+
+
+def distribute(u: torch.Tensor, ct: ConstraintTable) -> torch.Tensor:
+    """Set slave entries from their masters (AffineConstraints::distribute)."""
+    if ct.slave.shape[0] == 0:
+        return u
+    vals = (ct.weights * u[ct.masters]).sum(dim=-1)
+    out = u.clone()
+    out[ct.slave] = vals.to(u.dtype)
+    return out
+
+
+def distribute_transpose(r: torch.Tensor, ct: ConstraintTable) -> torch.Tensor:
+    """Transpose: move slave residuals to their masters, zero the slaves."""
+    if ct.slave.shape[0] == 0:
+        return r
+    contrib = (ct.weights * r[ct.slave][:, None]).to(r.dtype)
+    out = r.clone()
+    out[ct.slave] = 0
+    return out.index_add_(0, ct.masters.reshape(-1), contrib.reshape(-1))
+
+
+@dataclass(frozen=True)
+class LaplaceOperator:
+    """Constrained matrix-free Laplacian: vmult(u) = C^T A C u + I_c u.
+
+    Semantics match reference include/operator.h:152-183 — constrained DoFs
+    (Dirichlet + hanging) see the identity; the PDE acts on the rest.
+    """
+
+    cell_dofs: torch.Tensor     # int64 [n_cells, n_loc]
+    scale: torch.Tensor         # float [n_cells] — h^(dim-2)
+    elem: torch.Tensor          # float [n_loc, n_loc] — reference stiffness (symmetric)
+    hanging: ConstraintTable
+    dirichlet: torch.Tensor     # int64 [n_d] — Dirichlet DoF indices
+    constrained: torch.Tensor   # int64 [n_c] — Dirichlet + hanging slave indices
+    n_dofs: int
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.scale.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.scale.device
+
+    def cell_apply_raw(self, u: torch.Tensor) -> torch.Tensor:
+        """A_raw u: the unconstrained FE Laplacian (no constraint algebra)."""
+        rcell = torch.matmul(u[self.cell_dofs], self.elem) * self.scale[:, None]
+        return torch.zeros_like(u).index_add_(
+            0, self.cell_dofs.reshape(-1), rcell.reshape(-1)
+        )
+
+    def apply_c(self, u: torch.Tensor) -> torch.Tensor:
+        # zero Dirichlet first: hanging masters may be boundary DoFs, and the
+        # homogeneous operator must see them as 0 (C = distribute ∘ zero).
+        if self.dirichlet.shape[0]:
+            u = u.clone()
+            u[self.dirichlet] = 0
+        return distribute(u, self.hanging)
+
+    def apply_ct(self, r: torch.Tensor) -> torch.Tensor:
+        r = distribute_transpose(r, self.hanging)
+        if self.dirichlet.shape[0]:
+            r = r.clone()
+            r[self.dirichlet] = 0
+        return r
+
+    def vmult(self, u: torch.Tensor) -> torch.Tensor:
+        r = self.apply_ct(self.cell_apply_raw(self.apply_c(u)))
+        if self.constrained.shape[0]:
+            r[self.constrained] = u[self.constrained]
+        return r
+
+    def dot(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Plain dot: every DoF appears once in the global layout."""
+        return torch.sum(x * y)
+
+
+# ---------------------------------------------------------------------------
+# host-side construction
+# ---------------------------------------------------------------------------
 
 def split_boundary_constraints(
     dofh: DoFHandler, hanging: Constraints
@@ -30,6 +132,41 @@ def split_boundary_constraints(
     )
     dirichlet = np.nonzero(dofh.boundary_mask)[0].astype(np.int32)
     return hang, dirichlet
+
+
+def make_operator(
+    dofh: DoFHandler,
+    hanging: Constraints,
+    device: torch.device,
+    dtype: torch.dtype = torch.float32,
+) -> LaplaceOperator:
+    """The gather-engine operator of one DoFHandler on ``device``."""
+    mesh = dofh.mesh
+    dim, p = dofh.dim, dofh.degree
+    hang, dirichlet = split_boundary_constraints(dofh, hanging)
+    scale = mesh.h(mesh.level).astype(np.float64) ** (dim - 2)
+    constrained = np.unique(np.concatenate([dirichlet, hang.slave]))
+    K = max(hang.masters.shape[1], 1)
+
+    def idx(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+    def val(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    return LaplaceOperator(
+        cell_dofs=idx(dofh.cell_dofs),
+        scale=val(scale),
+        elem=val(element.laplace_element_matrix(dim, p)),
+        hanging=ConstraintTable(
+            idx(hang.slave),
+            idx(hang.masters if hang.masters.size else np.zeros((0, K))),
+            val(hang.weights if hang.weights.size else np.zeros((0, K))),
+        ),
+        dirichlet=idx(dirichlet),
+        constrained=idx(constrained),
+        n_dofs=dofh.n_dofs,
+    )
 
 
 def compute_diagonal(

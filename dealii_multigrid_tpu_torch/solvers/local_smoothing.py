@@ -274,8 +274,8 @@ def build_local_smoothing_mg_hybrid(
     Order as in the JAX package's function: the levels (one NumPy
     generator, seed 42, draws the eigenvalue start vectors in level
     order), the ls_mode transfers, every level's eigenvalue estimate with
-    the ownership dot, Chebyshev at 1.2 x lambda_max, the dense coarse
-    solve on the coarsest level."""
+    the ownership dot, Chebyshev at 1.2 x lambda_max, the algebraic coarse
+    solve on the coarsest level (dense up to 8,000 DoFs, AMG above)."""
     active = active_dofh.mesh
     assert active.dim == 3, "hybrid local smoothing is 3D (2D is ROADMAP item 11)"
     lmin = max(min_level, 0)
@@ -326,8 +326,8 @@ def build_local_smoothing_mg_hybrid(
         ))
     h0 = hosts[0]
     coarse = make_algebraic_solver(
-        h0.dofh, no_constraints(h0.dofh.n_dofs),
-        idx(h0.fmt.rep_slot), idx(h0.fmt.slot_dof), dtype,
+        h0.dofh, no_constraints(h0.dofh.n_dofs), dtype, device, mg_data,
+        to_idx=idx(h0.fmt.rep_slot), from_idx=idx(h0.fmt.slot_dof),
     )
     return LocalSmoothingMGHybrid(
         levels=tuple(levels),

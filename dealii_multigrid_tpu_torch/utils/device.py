@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -21,6 +23,25 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device type {dev.type!r}")
     return dev
+
+
+def describe_device(device: torch.device) -> str:
+    """What a printed time belongs to: ``cpu``, or the card's name with its
+    power limit as nvidia-smi reports it (the name alone where nvidia-smi
+    is not there to ask)."""
+    if device.type != "cuda":
+        return str(device)
+    name = torch.cuda.get_device_name(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        )
+    except (OSError, subprocess.SubprocessError):
+        return f"{device} ({name})"
+    return f"{device} ({out.stdout.strip().splitlines()[0]})"
 
 
 def to_tensor(a, device: torch.device, dtype: torch.dtype) -> torch.Tensor:

@@ -152,3 +152,98 @@ def test_small_solve_on_card_matches_cpu(cuda, mg_type, r, p, number, mg_number,
     assert res_gpu.x.dtype == res_cpu.x.dtype
     rel = (res_gpu.x.cpu() - res_cpu.x).abs().max() / res_cpu.x.abs().max()
     assert float(rel) <= tol
+
+
+# --- algebraic multigrid, the coarse-solver types, the CLI and phase timers ---
+
+
+def amg_matrix():
+    from dealii_multigrid_tpu_torch.mesh import dof, generators
+    from dealii_multigrid_tpu_torch.solvers.coarse import assemble_sparse_matrix
+
+    dofh = dof.distribute_dofs(generators.create("quadrant", 3, 4), 1)
+    return assemble_sparse_matrix(dofh, dof.make_hanging_node_constraints(dofh))
+
+
+@pytest.mark.parametrize("flavor", ["sa", "boomer"])
+@pytest.mark.parametrize("n_cycles", [1, 2])
+def test_amg_apply_on_card_matches_cpu(cuda, flavor, n_cycles):
+    from dealii_multigrid_tpu_torch.solvers import amg
+
+    build = amg.build_amg if flavor == "sa" else amg.build_amg_boomer
+    A = amg_matrix()
+    on_card = build(A, torch.float64, cuda, coarse_size=100, n_cycles=n_cycles)
+    on_cpu = build(A, torch.float64, "cpu", coarse_size=100, n_cycles=n_cycles)
+    assert len(on_card.levels) == len(on_cpu.levels) >= 2
+    b = torch.as_tensor(np.random.default_rng(11).standard_normal(A.shape[0]))
+    want = on_cpu.vmult(b)
+    got = on_card.vmult(b.to(cuda)).cpu()
+    assert float((got - want).abs().max()) <= 1e-10 * float(want.abs().max())
+    P = on_card.levels[1].P
+    r = P.rmatvec(b.to(cuda)).cpu()
+    assert float((r - on_cpu.levels[1].P.rmatvec(b)).abs().max()) <= 1e-10 * float(r.abs().max())
+
+
+def test_float32_amg_apply_is_repeatable_on_card(cuda):
+    """Restriction gathers through the transposed table: two applications of
+    one float32 hierarchy agree bit for bit."""
+    from dealii_multigrid_tpu_torch.solvers import amg
+
+    pre = amg.build_amg(amg_matrix(), torch.float32, cuda, coarse_size=100)
+    b = torch.as_tensor(
+        np.random.default_rng(12).standard_normal(pre.levels[0].A.shape[0]),
+        dtype=torch.float32, device=cuda,
+    )
+    first = pre.vmult(b)
+    assert all(torch.equal(pre.vmult(b), first) for _ in range(5))
+
+
+@pytest.mark.parametrize("mg_type,r,p,coarse,n_cycles,min_level", [
+    ("HPMG", 4, 2, "amg", 1, 5),
+    ("HPMG", 4, 2, "amg_petsc", 2, 5),
+    ("HPMG", 4, 2, "cg_with_amg", 1, 5),
+    ("HPMG", 4, 2, "cg", 1, 5),
+    ("HPMG", 4, 2, "cg_with_chebyshev", 1, 5),
+    ("HMG-local", 3, 4, "amg", 1, 2),
+    ("AMG", 4, 2, "amg", 1, -1),
+    ("AMGPETSc", 4, 2, "amg", 1, -1),
+])
+def test_amg_solves_on_card_match_cpu(cuda, monkeypatch, mg_type, r, p, coarse, n_cycles,
+                                      min_level):
+    """The direct-solve limit is lowered so that the coarse solve is AMG."""
+    from dealii_multigrid_tpu_torch.solvers import coarse as coarse_mod
+
+    monkeypatch.setattr(coarse_mod, "DIRECT_SOLVER_MAX_DOFS", 300)
+    prm = small_params(mg_type, r, p, "double", "double")
+    prm.min_level = min_level
+    prm.mg_data.coarse_solver.type = coarse
+    prm.mg_data.coarse_solver.n_cycles = n_cycles
+    res_gpu, _, _ = api.run(prm, cuda)
+    res_cpu, _, _ = api.run(prm, "cpu")
+    assert res_gpu.converged and res_gpu.n_iterations == res_cpu.n_iterations
+    assert res_gpu.solve_iterations == [res_gpu.n_iterations] * 2
+    rel = (res_gpu.x.cpu() - res_cpu.x).abs().max() / res_cpu.x.abs().max()
+    assert float(rel) <= 1e-8
+
+
+def test_cli_and_phase_timers_on_card(cuda, tmp_path, capsys):
+    import json
+
+    from dealii_multigrid_tpu_torch import cli
+
+    path = tmp_path / "input.json"
+    path.write_text(json.dumps({
+        "Type": "HMG-local", "GeometryType": "quadrant", "NRefGlobal": 3, "Degree": 2,
+        "SmootherDegree": 3, "MGNumberType": "float", "NumberType": "double",
+        "NRepetitions": 1, "ProfilePhases": True,
+    }))
+    assert cli.main([str(path)]) == 0                # no --device: the card
+    out = capsys.readouterr().out
+    assert out.startswith("device: cuda:0 (")
+    header = [ln for ln in out.splitlines() if ln.startswith("dim ")][-1].split()
+    row = out.splitlines()[-1].split()
+    cells = dict(zip(header, row))
+    for key in ("time_pre", "time_residuum", "time_res", "time_cs", "time_pro",
+                "time_edge_pro", "time_post", "time_to_mg", "time_to_global"):
+        assert float(cells[key]) > 0.0, key
+    assert "MG phases per level" in out

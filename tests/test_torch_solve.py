@@ -79,8 +79,6 @@ def test_float_levels_under_double_outer_cg():
     [
         ("dim", 2, "item 11"),
         ("n_shards", 2, "item 13"),
-        ("type", "AMG", "item 10"),
-        ("type", "AMGPETSc", "item 10"),
         ("mg_number_type", "bfloat16", "item 6"),
     ],
 )
@@ -92,21 +90,31 @@ def test_unported_configurations_name_their_roadmap_item(field, value, item):
 
 
 def test_unported_coarse_type_raises():
+    """Every coarse type of the reference is ported; a name that is none of
+    them is refused."""
     prm = params(TParams, 2, 2)
-    prm.mg_data.coarse_solver.type = "cg_with_chebyshev"
-    with pytest.raises(NotImplementedError, match="item 10"):
+    prm.mg_data.coarse_solver.type = "cg_with_ilu"
+    with pytest.raises(ValueError, match="unknown coarse solver type"):
         tapi.run(prm, "cpu")
 
 
 def test_large_coarse_level_needs_amg():
+    """Above the direct-solve limit the algebraic solver is AMG, and
+    ``force_direct`` still factors the matrix."""
     from dealii_multigrid_tpu_torch.mesh import dof as TD
-    from dealii_multigrid_tpu_torch.solvers.coarse import make_algebraic_solver
+    from dealii_multigrid_tpu_torch.solvers.amg import AMGPreconditioner
+    from dealii_multigrid_tpu_torch.solvers.coarse import (
+        DirectCoarseSolver, make_algebraic_solver,
+    )
 
     dofh = TD.distribute_dofs(TG.create("quadrant", 3, 3), 4)  # 9295 DoFs > 8000
     hang = TD.make_hanging_node_constraints(dofh)
-    idx = torch.zeros(1, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_algebraic_solver(dofh, hang, idx, idx, torch.float64)
+    cpu = torch.device("cpu")
+    amg = make_algebraic_solver(dofh, hang, torch.float64, cpu)
+    assert isinstance(amg, AMGPreconditioner) and len(amg.levels) >= 2
+    assert amg.levels[0].A.shape == (9295, 9295)
+    direct = make_algebraic_solver(dofh, hang, torch.float64, cpu, force_direct=True)
+    assert isinstance(direct, DirectCoarseSolver) and direct.L.shape == (9295, 9295)
 
 
 def test_parameter_study_runs_fixed_iterations():
