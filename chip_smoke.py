@@ -63,9 +63,29 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      n. AMG and AMGPETSc on quadrant r=7 p=1 (283,109 DoFs), double;
      o. the CLI on two JSON files written to a temporary directory
         (HMG-global r=7 p=4 float, and k's configuration, both with
-        ProfilePhases): two table rows with every column, and the phase sum
-        times the iteration count against the solve time (printed; held to
-        PHASE_SUM_LIMIT times it, see there);
+        ProfilePhases): two table rows with every column and time_cg > 0
+        (time_cg = the instrumented iteration - its phase sum, unclamped:
+        so the phase sum is below the iteration);
+     p. run-to-run repeatability: one float32 input 20 times through
+        HybridOperator.vmult, HybridTransfer.restrict and the Poisson
+        right-hand side's assembly (Gaussian) at L7/L6 of b (h) and
+        HybridTransfer.restrict of d's finest p-levels (p), LaplaceOperator.vmult and
+        TwoLevelTransfer.restrict (h and p) of r's 2D HPMG hierarchy, and
+        LSTransfer.restrict of r's 2D HMG-local: all 20 outputs bit-equal;
+        each fixed-order table's width and bytes;
+     q. 2D card against CPU, small (quadrant r=5 p=2): the five multigrid
+        types in double (x to 1e-8), HMG-global and HMG-local mixed over
+        float (x to 1e-5), equal iteration counts; df32 in 2D raises;
+     r. 2D quadrant r=10 p=4 (4,226,487 DoFs): HMG-global float, HPMG
+        mixed, HMG-local double over float levels, and PMG mixed at r=9
+        (AMG on the fine mesh at p=1); 5 repetitions each: converged, the guard, one iteration count
+        in all six solves; set-up, peak memory, MDoF/s;
+     s. Stokes on the hypercube: r=2 card against CPU (block-diagonal
+        MINRES, triangular FGMRES(30)); r=3 FGMRES(30) to 1e-8 in 34
+        iterations (results/stokes-nsinker-tpu.txt:8) with the true
+        relative residual <= 1e-8; r=5 (859,812 DoFs) the same, best of 3;
+     t. the CLI on a 2D JSON config (HMG-global r=8 p=4, ProfilePhases):
+        one row with every column, time_cg > 0;
   5. for every patch level of the b, d, f, h, i and k hierarchies (h and i
      through ``result.mg`` and ``result.ls_mg``): the kernel on the level's
      own KS, MS and pscale against the plain version, its time, launches
@@ -433,14 +453,6 @@ def print_amg(name: str, amg, card: str) -> None:
           f"{ {k: round(v, 3) for k, v in amg.setup_seconds.items()} }; card {card}", flush=True)
 
 
-#: Phase o holds (sum of the MG phases) x iterations to this multiple of the
-#: solve time.  The phases of one V-cycle should add up to less than a CG
-#: iteration; but the solve time is the best of five on a host whose speed
-#: moves by tens of percent within seconds, and the phases are timed after
-#: it, so the ratio read 0.85-1.52 over the runs of scripts/probe_phases.py
-#: and of this script.  The line prints the ratio and whether it was below 1.
-PHASE_SUM_LIMIT = 2.0
-
 #: the CLI's columns with ProfilePhases and Verbosity on, in order
 CLI_COLUMNS = (
     "dim type geometry n_cells degree n_ref_global n_ref_local min_level coarse_type n_cycles "
@@ -471,6 +483,317 @@ def parse_last_table(text: str) -> list:
 
 
 
+# ---------------------------------------------------------------------------
+# phases p-t (2D multigrid, the gather engine, Stokes, fixed-order sums)
+# ---------------------------------------------------------------------------
+
+#: phase p's sites; every one must have been checked by the end of the run
+P_SITES = (
+    "HybridOperator.vmult", "HybridTransfer.restrict h", "HybridTransfer.restrict p",
+    "LaplaceOperator.vmult", "TwoLevelTransfer.restrict h", "TwoLevelTransfer.restrict p",
+    "LSTransfer.restrict", "Poisson RHS",
+)
+#: 2D quadrant r=10 p=4, as the port's host set-up counts them
+N_DOFS_2D_R10 = 4_226_487
+
+
+def table_desc(tables: dict) -> str:
+    if not tables:
+        return "none"
+    return ", ".join(
+        f"{name} width {t.width} {t.nbytes / 2**20:.2f} MiB" for name, t in tables.items()
+        if t is not None
+    )
+
+
+def repeat_check(label: str, where: str, fn, x: torch.Tensor, tables: dict, done: set,
+                 card: str, n: int = 20) -> None:
+    """Phase p: the same float32 input through ``fn`` n times on the card;
+    every output must equal the first bit for bit."""
+    check(x.dtype == torch.float32 and x.is_cuda, f"phase p {label}: input not float32 on the card")
+    ref = fn(x)
+    same = 1
+    for _ in range(n - 1):
+        same += int(torch.equal(fn(x), ref))
+    torch.cuda.synchronize()
+    print(f"phase p {label} ({where}): {same} of {n} runs bit-equal; output {tuple(ref.shape)}; "
+          f"fixed-order tables: {table_desc(tables)}; card {card}", flush=True)
+    check(same == n, f"phase p {label}: only {same} of {n} float32 runs are bit-equal")
+    done.add(label)
+
+
+def hybrid_sites(levels, mg, done: set, card: str, where: str, p_transfer: bool) -> None:
+    """Phase p on a hybrid hierarchy: the finest operator's vmult and the
+    finest h- (or p-) restriction, on consistent float32 slot vectors."""
+    fine, coarse = levels[-1], levels[-2]
+    tr = mg.transfers[-1]
+    rng = np.random.default_rng(20)
+    x = torch.as_tensor(fine.fmt.from_global(rng.standard_normal(fine.dofh.n_dofs)),
+                        dtype=torch.float32, device=fine.op.device)
+    if not p_transfer:
+        repeat_check("HybridOperator.vmult", where, fine.op.vmult, x, fine.op.sum_tables(), done, card)
+    tables = {"restrict": tr.restrict_sum, **{f"coarse {k}": v for k, v in coarse.op.sum_tables().items()}}
+    kind = "p" if p_transfer else "h"
+    repeat_check(f"HybridTransfer.restrict {kind}", where, tr.restrict, x, tables, done, card)
+    if not p_transfer:
+        from dealii_multigrid_tpu_torch.models import poisson
+        from dealii_multigrid_tpu_torch.ops.hybrid_format import cell_slot_table
+
+        # the host sums the cell integrals into the slots (np.bincount)
+        slots = cell_slot_table(fine.fmt)
+        repeat_check("Poisson RHS", where, lambda _: poisson.assemble_problem_hybrid(
+            fine.dofh, fine.hanging, fine.op, slots, fine.fmt, "Gaussian")[1], x, {}, done, card)
+        del slots
+        t_v = time_ms(lambda: fine.op.vmult(x), 10)
+        t_r = time_ms(lambda: tr.restrict(x), 10)
+        print(f"fixed-order sums at {where}: HybridOperator.vmult {t_v:.4f} ms, HybridTransfer.restrict "
+              f"{t_r:.4f} ms (each the mean of 10 calls queued behind a sleep); card {card}", flush=True)
+
+
+def gather_sites(res_gc, levels_gc, res_ls, done: set, card: str, where: str) -> None:
+    """Phase p on 2D gather hierarchies: the fine LaplaceOperator, the finest
+    h- and p-transfers of an HPMG hierarchy, the finest LS transfer."""
+    from dealii_multigrid_tpu_torch.ops.transfer import TwoLevelTransfer
+
+    rng = np.random.default_rng(21)
+    dev = torch.device("cuda:0")
+
+    def vec(n):
+        return torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device=dev)
+
+    op = levels_gc[-1].op
+    repeat_check("LaplaceOperator.vmult", where, op.vmult, vec(op.n_dofs),
+                 {"cell": op.cell_sum, "masters": op.hanging.master_sum}, done, card)
+    trs = res_gc.mg.transfers
+    for kind, l in (("p", len(trs) - 1), ("h", next(l for l in range(len(trs) - 1, 0, -1)
+                                                   if levels_gc[l].degree == levels_gc[l - 1].degree))):
+        tr = trs[l]
+        check(isinstance(tr, TwoLevelTransfer), "the 2D transfer is not a TwoLevelTransfer")
+        repeat_check(f"TwoLevelTransfer.restrict {kind}", where, tr.restrict, vec(tr.n_dofs_fine),
+                     {"restrict": tr.restrict_sum, "coarse masters": tr.coarse_hanging.master_sum},
+                     done, card)
+    lt = res_ls.ls_mg.transfers[-1]
+    repeat_check("LSTransfer.restrict", where, lt.restrict, vec(lt.n_f),
+                 {"restrict": lt.restrict_sum}, done, card)
+
+
+def params_2d(n_ref: int, degree: int, number: str, reps: int, mg_type: str,
+              mg_number: str | None = None):
+    prm = bench_params(n_ref, degree, number, reps, mg_type, mg_number)
+    prm.dim = 2
+    return prm
+
+
+def phase_q(dev, card: str) -> None:
+    """2D card against CPU, small (quadrant r=5 p=2): the five multigrid
+    types in double (x to 1e-8), HMG-global and HMG-local mixed over float
+    levels (x to 1e-5), equal iteration counts; df32 in 2D raises."""
+    from dealii_multigrid_tpu_torch import api
+
+    runs = [(t, "double", "double", 1e-8) for t in
+            ("HMG-global", "PMG", "HPMG", "HMG-local", "HPMG-local")]
+    runs += [(t, "mixed", "float", 1e-5) for t in ("HMG-global", "HMG-local")]
+    for mg_type, number, mg_number, tol in runs:
+        prm = params_2d(5, 2, number, 1, mg_type, mg_number)
+        res_gpu, _, _ = api.run(prm, dev)
+        res_cpu, _, _ = api.run(prm, "cpu")
+        rel = max_rel(res_gpu.x, res_cpu.x)
+        print(f"phase q: 2D {mg_type} r=5 p=2 {number}/{mg_number}: n_dofs {res_gpu.n_dofs}, card "
+              f"{res_gpu.n_iterations} it, cpu {res_cpu.n_iterations} it, max rel diff {rel:.3e} "
+              f"(limit {tol:g})", flush=True)
+        check(res_gpu.converged and res_gpu.n_iterations == res_cpu.n_iterations and rel <= tol
+              and res_gpu.x.is_cuda and res_gpu.x.dtype == res_cpu.x.dtype,
+              f"2D card solve disagrees with the CPU solve ({mg_type} {number})")
+    try:
+        api.run(params_2d(5, 2, "df32", 1, "HMG-global", "float"), dev)
+    except ValueError as exc:
+        print(f"phase q: 2D df32 raises ValueError: {exc}", flush=True)
+    else:
+        check(False, "2D df32 did not raise ValueError")
+
+
+def run_2d(prm, dev, card: str, name: str, n_it: int | None = None):
+    """One full-size 2D run on the card; the checks and line of phase r."""
+    from dealii_multigrid_tpu_torch import api
+
+    before = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (res, problem, levels), launches = counted(lambda: api.run(prm, dev))
+    wall = time.perf_counter() - t0
+    its = res.solve_iterations
+    print(f"phase r: {name}: n_dofs {res.n_dofs}, levels {res.n_levels}, solve iterations {its}, "
+          f"loop residual {res.residual_norm:.4e}, true residual {res.true_residual:.4e} "
+          f"(allowance {res.guard_threshold:.4e}), solve {res.time:.6f} s "
+          f"(reps {[round(t, 6) for t in res.time_per_rep]}), {res.throughput / 1e6:.3f} MDoF/s, "
+          f"setup {res.setup_time:.1f} s, run wall {wall:.1f} s, "
+          f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (allocated before "
+          f"{before:.2f} GiB), stencil launches {launches}; card {card}", flush=True)
+    check(res.converged, f"{name} did not converge")
+    check(len(set(its)) == 1 and len(its) == prm.mg_data.n_repetitions + 1,
+          f"{name}: the solves took different iteration counts {its}")
+    check(n_it is None or its[0] == n_it, f"{name}: expected {n_it} iterations, got {its}")
+    check(res.true_residual <= res.guard_threshold, f"{name}: true-residual guard failed")
+    check(launches == 0, f"{name}: the 2D gather engine launched the stencil")
+    check(bool(torch.isfinite(res.x).all()) and res.x.is_cuda, f"{name}: x not finite on the card")
+    return res, levels
+
+
+def phase_r(dev, card: str, n_ref: int, done: set) -> dict:
+    """2D quadrant p=4 at full size: HMG-global float, HPMG mixed over
+    float levels, HMG-local double over float levels, PMG mixed (its
+    coarse level is the fine mesh at p=1, an AMG solve); phase p's
+    gather-engine sites on the HPMG and HMG-local hierarchies."""
+    out = {}
+    res, levels = run_2d(params_2d(n_ref, 4, "float", 5, "HMG-global"), dev, card,
+                         f"2D HMG-global r={n_ref} p=4 float")
+    if n_ref == 10:
+        check(res.n_dofs == N_DOFS_2D_R10 and levels[-1].mesh.n_cells == 263_701,
+              f"2D r=10: {res.n_dofs} DoFs")
+    out["hmg_global"] = res.n_iterations
+    del res, levels
+    res_gc, levels_gc = run_2d(params_2d(n_ref, 4, "mixed", 5, "HPMG", "float"), dev, card,
+                               f"2D HPMG r={n_ref} p=4 mixed/float")
+    out["hpmg"] = res_gc.n_iterations
+    res_ls, _ = run_2d(params_2d(n_ref, 4, "double", 5, "HMG-local", "float"), dev, card,
+                       f"2D HMG-local r={n_ref} p=4 double/float")
+    out["hmg_local"] = res_ls.n_iterations
+    gather_sites(res_gc, levels_gc, res_ls, done, card, f"2D r={n_ref}")
+    del res_gc, levels_gc, res_ls
+    torch.cuda.empty_cache()
+    n_pmg = min(n_ref, 9)  # at r=10 AMG's set-up alone takes ~100 s
+    res, levels = run_2d(params_2d(n_pmg, 4, "mixed", 5, "PMG", "float"), dev, card,
+                         f"2D PMG r={n_pmg} p=4 mixed/float")
+    print(f"phase r: 2D PMG r={n_pmg}: coarse level p=1 with {levels[0].dofh.n_dofs} DoFs "
+          f"({type(res.mg.coarse_solve).__name__}); card {card}", flush=True)
+    out["pmg"] = res.n_iterations
+    del res, levels
+    torch.cuda.empty_cache()
+    return out
+
+
+def stokes_rhs(op) -> torch.Tensor:
+    """The record's right-hand side: NumPy default_rng(0) normals, velocity
+    masked by keep_v, pressure mean-free (scripts/profile_stokes_tpu.py)."""
+    b = np.random.default_rng(0).normal(size=3 * op.n_v + op.n_p)
+    b[: 3 * op.n_v] *= op.keep_v.cpu().numpy()
+    b[3 * op.n_v:] -= b[3 * op.n_v:].mean()
+    return torch.as_tensor(b, dtype=op.dtype, device=op.keep_v.device)
+
+
+def phase_s(dev, card: str) -> None:
+    """Stokes on the hypercube: r=2 card against CPU (block-diagonal MINRES,
+    triangular FGMRES(30)); r=3 FGMRES(30) to 1e-8 in 34 iterations
+    (results/stokes-nsinker-tpu.txt:8); r=5 the same solve, best of 3."""
+    from dealii_multigrid_tpu_torch.mesh import generators
+    from dealii_multigrid_tpu_torch.models import stokes
+    from dealii_multigrid_tpu_torch.solvers.gmres import gmres_solve, verify_true_residual
+    from dealii_multigrid_tpu_torch.utils.params import MultigridParameters
+
+    mg = MultigridParameters()
+    mg.smoother.degree = 3
+    mg.coarse_solver.type = "amg"
+    sols = []
+    for where in (dev, "cpu"):
+        op, block, _ = stokes.build_stokes(generators.create("hypercube", 3, 2, 0), mg,
+                                           device=where)
+        b = stokes_rhs(op)
+        x_m, it_m, _ = stokes.minres_solve(op.vmult, b, block.vmult, maxiter=500, reltol=1e-8)
+        tri = stokes.triangular_preconditioner(op, block)
+        g = gmres_solve(op.vmult, b, tri.vmult, m=30, maxiter=200, reltol=1e-8)
+        sols.append((x_m, it_m, g.x, g.n_iterations, g.converged))
+    (xm_g, im_g, xg_g, ig_g, ok_g), (xm_c, im_c, xg_c, ig_c, ok_c) = sols
+    rel_m, rel_g = max_rel(xm_g, xm_c), max_rel(xg_g, xg_c)
+    print(f"phase s: Stokes r=2: MINRES card {im_g} / cpu {im_c} it, x {rel_m:.3e}; FGMRES(30) card "
+          f"{ig_g} / cpu {ig_c} it, x {rel_g:.3e} (limit 1e-08)", flush=True)
+    check(im_g == im_c and ig_g == ig_c and ok_g and ok_c and rel_m <= 1e-8 and rel_g <= 1e-8
+          and xg_g.is_cuda, "Stokes r=2: card disagrees with the CPU")
+    for r, reps in ((3, 1), (5, 3)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        op, block, _ = stokes.build_stokes(generators.create("hypercube", 3, r, 0), mg, device=dev)
+        tri = stokes.triangular_preconditioner(op, block)
+        b = stokes_rhs(op)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        gmres_solve(op.vmult, b, tri.vmult, m=30, maxiter=200, reltol=1e-8)  # warm-up
+        times, its = [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = gmres_solve(op.vmult, b, tri.vmult, m=30, maxiter=200, reltol=1e-8)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            its.append(g.n_iterations)
+        n = 3 * op.n_v + op.n_p
+        true = verify_true_residual(op, b, g.x, g.residual_norm, 1e-8)
+        rel_true = true / float(torch.linalg.norm(b))
+        best = min(times)
+        print(f"phase s: Stokes r={r} triangular FGMRES(30) float64: n_dofs {n} ({3 * op.n_v} velocity "
+              f"+ {op.n_p} pressure), iterations {its}, converged {g.converged}, true relative residual "
+              f"{rel_true:.3e}, solve {best:.6f} s (reps {[round(t, 6) for t in times]}), "
+              f"{n * its[-1] / best / 1e6:.3f} MDoF/s, setup {setup:.1f} s, "
+              f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card}", flush=True)
+        check(g.converged and rel_true <= 1e-8 and len(set(its)) == 1,
+              f"Stokes r={r}: converged {g.converged}, true relative residual {rel_true:.3e}, its {its}")
+        if r == 3:
+            check(n == 15_468 and its[0] == 34, f"Stokes r=3: {n} DoFs, {its} iterations (record 34)")
+        else:
+            check(n == 859_812, f"Stokes r=5: {n} DoFs")
+        del op, block, tri, b, g
+        torch.cuda.empty_cache()
+
+
+def phase_t(card: str) -> None:
+    """The CLI on a 2D JSON config: HMG-global r=8 p=4 with ProfilePhases;
+    one row with every column, time_cg > 0."""
+    from dealii_multigrid_tpu_torch import cli
+
+    cfg = {"Type": "HMG-global", "Dim": 2, "GeometryType": "quadrant", "NRefGlobal": 8,
+           "Degree": 4, "SmootherDegree": 3, "RelativeTolerance": 1e-4, "MGNumberType": "float",
+           "NumberType": "float", "CoarseGridSolverType": "amg", "NRepetitions": 5,
+           "ProfilePhases": True}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "input_2d.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = cli.main([path])
+    print(text.getvalue(), flush=True)
+    check(rc == 0, f"the CLI returned {rc} on the 2D config")
+    rows = parse_last_table(text.getvalue())
+    check(len(rows) == 1 and list(rows[0]) == CLI_COLUMNS, f"2D CLI table: {rows}")
+    check_phase_row(rows[0], "2D HMG-global r=8", card)
+    check(rows[0]["dim"] == "2", "the 2D CLI row is not dim 2")
+
+
+def check_phase_row(row: dict, name: str, card: str) -> None:
+    """A ProfilePhases row: every column filled and time_cg > 0.  time_cg
+    is the instrumented iteration minus its phase sum, unclamped, so
+    time_cg > 0 is the check that the phase sum stays below the iteration."""
+    check(all(row[c] != "" for c in CLI_COLUMNS), f"CLI row {name}: an empty cell in {row}")
+    check(row["converged"] == "True", f"CLI row {name}: not converged")
+    keys = ("pre", "residuum", "res", "cs", "pro", "edge_pro", "post", "to_mg", "to_global")
+    phase_sum = sum(float(row[f"time_{k}"]) for k in keys)
+    time_cg = float(row["time_cg"])
+    ratio = phase_sum / (phase_sum + time_cg)
+    print(f"CLI {name}: iterations {row['n_iterations']}, time_per_it {row['time_per_it']} s (best "
+          f"timed solve), in-solve phases per iteration { {k: row['time_' + k] for k in keys} } s, "
+          f"sum {phase_sum:.6f} s, time_cg {time_cg:.6f} s, phase sum / instrumented iteration "
+          f"{ratio:.4f}; card {card}", flush=True)
+    check(time_cg > 0, f"CLI row {name}: time_cg {time_cg}")
+
+
+def new_phases(dev, card: str, done: set, n_ref_2d: int) -> dict:
+    """Phases q, r, s, t, in that order (phase p runs inside b, d and r)."""
+    phase_q(dev, card)
+    its = phase_r(dev, card, n_ref_2d, done)
+    phase_s(dev, card)
+    phase_t(card)
+    return its
+
+
 def main() -> int:
     # 1. set up
     if not torch.cuda.is_available():
@@ -494,6 +817,8 @@ def main() -> int:
     print(f"kernel build: {secs:.1f} s -> {ps.library.path}", flush=True)
     if ps.library.build_log.strip():
         print(ps.library.build_log.strip(), flush=True)
+
+    done: set = set()  # phase p's sites
 
     # 3. kernel against the plain version
     measured = check_kernel(dev)
@@ -526,6 +851,8 @@ def main() -> int:
           f"{result.throughput / 1e6:.3f} MDoF/s, setup {result.setup_time:.1f} s, "
           f"run wall {wall:.1f} s, peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"(allocated before the run {before:.2f} GiB); card {card}", flush=True)
+    # phase p after the peak's reading: its 20 right-hand sides are not the run's
+    hybrid_sites(levels, result.mg, done, card, "main path L7/L6", p_transfer=False)
 
     # 5 (main path). per patch level: kernel time x launches per solve against the bound
     shapes = [(e.op.NP, e.op.S) for e in entries if e.op.NP > 0]
@@ -578,6 +905,7 @@ def main() -> int:
           f"HPMG r=7 p=4 plan: {[(lv.degree, lv.mesh.n_cells) for lv in levels]}")
     entries = gc_entries(levels, prm)
     check_solve("HPMG r=7 mixed", res_m, entries, launches)
+    hybrid_sites(levels, res_m.mg, done, card, "HPMG r=7 L10/L9 (p=4 from p=2)", p_transfer=True)
     print(f"HPMG quadrant r=7 p=4 mixed/float: n_dofs {res_m.n_dofs}, levels {len(levels)}, "
           f"iterations {res_m.n_iterations} (records: 4 at r=4-6), solve {res_m.time:.6f} s "
           f"(reps {[round(t, 6) for t in res_m.time_per_rep]}), {res_m.throughput / 1e6:.3f} MDoF/s, "
@@ -844,22 +1172,17 @@ def main() -> int:
           f"CLI table: {len(rows)} rows, columns {list(rows[0]) if rows else None}")
     for row, mg_type, n_levels in zip(rows, ("HMG-global", "PMG"), (8, 3)):
         check(all(row[c] != "" for c in CLI_COLUMNS), f"CLI row {mg_type}: an empty cell in {row}")
-        check(row["type"] == mg_type and row["n_dofs"] == "17551967" and row["converged"] == "True"
+        check(row["type"] == mg_type and row["n_dofs"] == "17551967"
               and int(row["n_levels"]) == n_levels, f"CLI row {mg_type}: {row}")
-        phase_sum = sum(float(row[f"time_{ph}"]) for ph in
-                        ("pre", "residuum", "res", "cs", "pro", "edge_pro", "post", "to_mg", "to_global"))
-        n_it, t_solve = int(row["n_iterations"]), float(row["time"])
-        ratio = phase_sum * n_it / t_solve
-        print(f"CLI {mg_type} r=7 p=4: iterations {n_it}, solve {t_solve} s, MG phases of one V-cycle "
-              f"{ {ph: row['time_' + ph] for ph in ('pre', 'residuum', 'res', 'cs', 'pro', 'edge_pro', 'post', 'to_mg', 'to_global')} } "
-              f"s, sum x iterations {phase_sum * n_it:.6f} s = {ratio:.3f} of the solve "
-              f"({'below' if ratio < 1.0 else 'NOT below'} it); card {card}", flush=True)
-        check(0.0 < ratio < PHASE_SUM_LIMIT,
-              f"CLI {mg_type}: phase sum x iterations {phase_sum * n_it} s is not inside "
-              f"(0, {PHASE_SUM_LIMIT}) x the solve's {t_solve} s")
+        check_phase_row(row, f"{mg_type} r=7 p=4", card)
     check(int(rows[0]["n_iterations"]) == 3, f"CLI HMG-global r=7: iterations {rows[0]['n_iterations']}")
     check(launches > 0, "the CLI runs launched no stencil")
     torch.cuda.empty_cache()
+
+    # 4p-4t. 2D on the gather engine, Stokes, the 2D CLI; phase p's sites
+    its_2d = new_phases(dev, card, done, 10)
+    print(f"2D r=10 iterations {its_2d}", flush=True)
+    check(done == set(P_SITES), f"phase p covered {sorted(done)}, not {P_SITES}")
 
     # result lines
     print(json.dumps({"kernels": [{

@@ -2,16 +2,18 @@
 
 Mirror of the JAX package's api.py (reference L5 layer: run /
 solve_with_global_coarsening / solve_with_local_smoothing / solve_with_amg /
-mg_solve, multigrid_throughput.cc:817-2396) on torch: each level of an
-HMG-global, PMG, HPMG, HMG-local or HPMG-local hierarchy is a HybridOperator
-on one device, with any of the reference's coarse-solver types below it; AMG
-and AMGPETSc precondition the gather-engine operator with the algebraic
-solver alone.  The outer solve is a Python-loop PCG in float, double, mixed
-(float64 vectors around the float32 operator) or df32 (double-single
-float32 pairs, solvers/twofloat.py), and timings are fenced with
-``torch.cuda.synchronize()``.  What is not ported yet (2D multigrid,
-bfloat16 levels, sharded solves) raises NotImplementedError naming its
-ROADMAP item.
+mg_solve, multigrid_throughput.cc:817-2396) on torch.  In 3D each level of
+an HMG-global, PMG, HPMG, HMG-local or HPMG-local hierarchy is a
+HybridOperator on one device; in 2D the same five types run on the gather
+engine (LaplaceOperator levels, ops/transfer.py, the gather-engine local
+smoothing), as in the JAX package.  Any of the reference's coarse-solver
+types sits below; AMG and AMGPETSc precondition the gather-engine operator
+with the algebraic solver alone.  The outer solve is a Python-loop PCG in
+float, double, mixed (float64 vectors around float32 levels) or df32
+(double-single float32 pairs, solvers/twofloat.py, hybrid engine only),
+and timings are fenced with ``torch.cuda.synchronize()``.  What is not
+ported yet (bfloat16 levels, sharded solves) raises NotImplementedError
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from .ops.hybrid import HybridOperator, make_hybrid_operator
 from .ops.hybrid_format import HybridFormat, build_hybrid_format, cell_slot_table
 from .ops.hybrid_transfer import make_hybrid_transfer
 from .ops.operator import LaplaceOperator, compute_diagonal, make_operator
+from .ops.transfer import make_two_level_transfer
 from .solvers.cg import cg_solve
 from .solvers.chebyshev import (
     ChebyshevSmoother,
@@ -39,10 +42,16 @@ from .solvers.chebyshev import (
 )
 from .solvers.coarse import make_algebraic_solver, make_cg_coarse_solver, make_coarse_solver
 from .solvers import twofloat
-from .solvers.local_smoothing import LocalSmoothingMGHybrid, build_local_smoothing_mg_hybrid
+from .solvers.local_smoothing import (
+    LocalSmoothingMG,
+    LocalSmoothingMGHybrid,
+    build_local_smoothing_mg,
+    build_local_smoothing_mg_hybrid,
+)
 from .solvers.multigrid import Multigrid, PreconditionMG
 from .utils.device import resolve_device
 from .utils.params import MultigridParameters, RunParameters
+from .utils.phases import PhaseRecorder, instrument
 
 _DTYPES = {
     "float": torch.float32,
@@ -105,6 +114,68 @@ def build_level(
         1.0 / compute_diagonal(dofh, hanging), dtype=dtype, device=device
     )
     return LevelContext(mesh, degree, dofh, hanging, op, inv_diag)
+
+
+def level_in(level: LevelContext, dtype: torch.dtype) -> LevelContext:
+    """The same level with its operator in ``dtype`` (the host DoFs and
+    constraints are reused)."""
+    if level.op.dtype == dtype:
+        return level
+    op = make_operator(level.dofh, level.hanging, level.op.device, dtype)
+    return LevelContext(
+        level.mesh, level.degree, level.dofh, level.hanging, op, level.inv_diag.to(dtype)
+    )
+
+
+def _seeded_normal(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The eigenvalue-estimation start vector of a gather-engine level: the
+    JAX package draws it from ``jax.random``, the port from NumPy (seed 42),
+    as on its hybrid levels."""
+    return torch.as_tensor(
+        np.random.default_rng(42).standard_normal(n), dtype=dtype, device=device
+    )
+
+
+def build_gc_preconditioner(
+    levels: list[LevelContext], mg_data: MultigridParameters, coarse_solve=None
+) -> Multigrid:
+    """Transfers, smoothers and the coarse solve of a gather-engine
+    global-coarsening hierarchy (JAX api.build_gc_preconditioner).  A given
+    ``coarse_solve`` (HPMG-local's LS V-cycle) replaces the configured one
+    on ``levels[0]``, and nothing is built for that level."""
+    level_dtype = levels[-1].op.dtype
+    transfers: list = [None]
+    for l in range(1, len(levels)):
+        transfers.append(make_two_level_transfer(
+            levels[l].dofh, levels[l - 1].dofh, levels[l].op, levels[l - 1].op,
+            dtype=level_dtype,
+        ))
+    ranges = estimate_eigenvalue_ranges(
+        [lv.op for lv in levels[1:]],
+        [lv.inv_diag for lv in levels[1:]],
+        [_seeded_normal(lv.dofh.n_dofs, level_dtype, lv.op.device) for lv in levels[1:]],
+        n_iterations=mg_data.smoother.eig_cg_n_iterations,
+    )
+    smoothers: list = [None]
+    for l in range(1, len(levels)):
+        smoothers.append(ChebyshevSmoother.create(
+            levels[l].op,
+            levels[l].inv_diag,
+            max_eigenvalue=1.2 * ranges[l - 1][0],  # deal.II safety factor
+            degree=mg_data.smoother.degree,
+            smoothing_range=mg_data.smoother.smoothing_range,
+        ))
+    if coarse_solve is None:
+        coarse_solve = make_coarse_solver(
+            mg_data.coarse_solver.type, levels[0].op, levels[0].dofh, levels[0].hanging,
+            inv_diag=levels[0].inv_diag, mg_data=mg_data, dtype=level_dtype,
+        )
+    return Multigrid(
+        operators=tuple(lv.op for lv in levels),
+        smoothers=tuple(smoothers),
+        transfers=tuple(transfers),
+        coarse_solve=coarse_solve,
+    )
 
 
 def gc_level_plan(
@@ -266,9 +337,13 @@ class MGSolveResult:
     solve_iterations: list      # iteration count of every solve, warm-up first
     setup_time: float = 0.0     # host + device setup before the first solve, s
     mg: object = None           # the global-coarsening Multigrid (None on HMG-local)
-    ls_mg: object = None        # the LocalSmoothingMGHybrid of HMG-local and HPMG-local
+    ls_mg: object = None        # the local-smoothing hierarchy of HMG-local and HPMG-local
     amg: object = None          # the algebraic solver of AMG and AMGPETSc
     rhs_used: torch.Tensor | None = None
+    # ProfilePhases: seconds per iteration of each MG phase and of the whole
+    # iteration, both from the one instrumented solve after the timed ones
+    phases: dict | None = None
+    phase_iteration_time: float | None = None
 
 
 def _fence(device: torch.device) -> None:
@@ -283,9 +358,14 @@ def mg_solve(
     mg_data: MultigridParameters,
     n_levels: int,
     n_dofs: int,
+    profile_phases: bool = False,
 ) -> MGSolveResult:
     """Warm-up solve + best-of-n_repetitions timed CG, the reference's
-    benchmark protocol (multigrid_throughput.cc:1140-1268).
+    benchmark protocol (multigrid_throughput.cc:1140-1268).  With
+    ``profile_phases`` one more solve runs with the preconditioner's phase
+    hooks timing every phase of its V-cycles (utils/phases.py); its
+    per-iteration phase and iteration times land in ``phases`` and
+    ``phase_iteration_time``, and the timed solves stay uninstrumented.
 
     ``fine_op`` is a HybridOperator, a MixedPrecisionOperator or (AMG,
     AMGPETSc) a gather-engine LaplaceOperator, whose dot is the plain one;
@@ -298,15 +378,15 @@ def mg_solve(
     df32 = isinstance(rhs, twofloat.TF)
     device = (rhs.hi if df32 else rhs).device
 
-    def solve():
+    def solve(precond=preconditioner):
         if df32:
             return twofloat.cg_solve_df32(
-                fine_op.vmult, rhs, preconditioner=preconditioner.vmult,
+                fine_op.vmult, rhs, preconditioner=precond.vmult,
                 maxiter=ctrl.maxiter, abstol=ctrl.abstol, reltol=ctrl.reltol,
                 force_iterations=force, weight=fine_op.owner,
             )
         return cg_solve(
-            fine_op.vmult, rhs, preconditioner=preconditioner.vmult,
+            fine_op.vmult, rhs, preconditioner=precond.vmult,
             maxiter=ctrl.maxiter, abstol=ctrl.abstol, reltol=ctrl.reltol,
             force_iterations=force, dot=fine_op.dot,
         )
@@ -345,6 +425,15 @@ def mg_solve(
             f"||b|| {res.norm0:.3e}, allowance {threshold:.3e}): the operator, "
             "preconditioner or a kernel computed an inconsistent state"
         )
+    phases = phase_iteration_time = None
+    recorder = PhaseRecorder(device)
+    hooked = instrument(preconditioner, recorder) if profile_phases else None
+    if hooked is not None:  # AMG and AMGPETSc have no MG phases
+        _fence(device)
+        res_p, seconds = recorder.span(lambda: solve(hooked))
+        n_it = max(res_p.n_iterations, 1)
+        phases = {k: v / n_it for k, v in recorder.seconds.items()}
+        phase_iteration_time = seconds / n_it
     # a double-single x rounds to float32 at the API surface
     x = twofloat.tf_round(res.x) if df32 else res.x
     return MGSolveResult(
@@ -360,6 +449,8 @@ def mg_solve(
         true_residual=true_res,
         guard_threshold=threshold,
         solve_iterations=iterations,
+        phases=phases,
+        phase_iteration_time=phase_iteration_time,
     )
 
 
@@ -405,7 +496,8 @@ def _timed_solve(params, fine: HybridLevel, outer_op, rhs, precond, n_levels: in
     _fence(fine.op.device)
     setup_time = time.perf_counter() - t_setup
     result = mg_solve(
-        outer_op, rhs, precond, params.mg_data, n_levels=n_levels, n_dofs=fine.dofh.n_dofs
+        outer_op, rhs, precond, params.mg_data, n_levels=n_levels,
+        n_dofs=fine.dofh.n_dofs, profile_phases=params.profile_phases,
     )
     result.setup_time = setup_time
     result.rhs_used = twofloat.tf_round(rhs) if isinstance(rhs, twofloat.TF) else rhs
@@ -441,11 +533,12 @@ def solve_with_global_coarsening_hybrid(
 
 @dataclass(frozen=True)
 class PreconditionLS:
-    """Precision and constrained-subspace wrapper around the LS V-cycle;
-    callable, so that it can serve as a coarse solve (HPMG-local)."""
+    """Precision and constrained-subspace wrapper around the LS V-cycle of
+    either engine; callable, so that it can serve as a coarse solve
+    (HPMG-local)."""
 
-    lsmg: LocalSmoothingMGHybrid
-    keep: torch.Tensor          # 0 on the active mesh's constrained slots
+    lsmg: LocalSmoothingMGHybrid | LocalSmoothingMG
+    keep: torch.Tensor          # 0 on the active mesh's constrained DoFs / slots
     outer_dtype: torch.dtype
 
     def vmult(self, b: torch.Tensor) -> torch.Tensor:
@@ -497,6 +590,103 @@ def solve_with_local_smoothing_hybrid(
     return result, problem, [fine]
 
 
+def _no_df32_in_2d(params: RunParameters) -> None:
+    if params.number_type == "df32":
+        raise ValueError(
+            "NumberType=df32 (double-single outer CG) is implemented on the "
+            "hybrid engine (3D); use NumberType=mixed on the gather engine"
+        )
+
+
+def _gather_solve(params, fine: LevelContext, problem, precond, n_levels: int,
+                  t_setup: float) -> MGSolveResult:
+    """Fence the set-up and run mg_solve on the gather engine."""
+    _fence(fine.op.device)
+    setup_time = time.perf_counter() - t_setup
+    result = mg_solve(
+        fine.op, problem.rhs, precond, params.mg_data, n_levels=n_levels,
+        n_dofs=fine.dofh.n_dofs, profile_phases=params.profile_phases,
+    )
+    result.setup_time = setup_time
+    result.rhs_used = problem.rhs
+    return result
+
+
+def solve_with_global_coarsening(
+    params: RunParameters, fine_mesh: AdaptiveMesh, device: torch.device
+):
+    """HMG-global, PMG or HPMG on the gather engine, the 2D path (reference:
+    multigrid_throughput.cc:1443-1666).  The outer CG runs the fine level's
+    operator in the outer precision.  Returns (result, problem, levels)."""
+    _no_df32_in_2d(params)
+    t_setup = time.perf_counter()
+    outer_dtype = number_dtype(params.number_type)
+    level_dtype = number_dtype(params.mg_number_type)
+    tri_seq = geometric_coarsening_sequence(fine_mesh, params.min_level, params.min_n_cells)
+    plan = gc_level_plan(params.type, tri_seq, params.fe_degree_fine)
+    levels = [build_level(mesh, degree, device, level_dtype) for mesh, degree in plan]
+    fine = level_in(levels[-1], outer_dtype)
+    problem = poisson.make_problem(fine.dofh, fine.hanging, fine.op, params.simulation_type)
+    mg = build_gc_preconditioner(levels, params.mg_data)
+    result = _gather_solve(
+        params, fine, problem, PreconditionMG(mg, outer_dtype), len(levels), t_setup
+    )
+    result.mg = mg
+    return result, problem, levels
+
+
+def _global_keep(level: LevelContext, dtype: torch.dtype) -> torch.Tensor:
+    """1 on the level's free DoFs, 0 on its constrained ones."""
+    keep = torch.ones(level.dofh.n_dofs, dtype=dtype, device=level.op.device)
+    keep[level.op.constrained] = 0
+    return keep
+
+
+def solve_with_local_smoothing(
+    params: RunParameters, fine_mesh: AdaptiveMesh, device: torch.device
+):
+    """HMG-local or HPMG-local: the hybrid engine in 3D, the gather engine
+    in 2D (reference: solve_with_local_smoothing,
+    multigrid_throughput.cc:1670-1873).  HPMG-local chains the p-levels of
+    the active mesh above the degree-1 LS hierarchy, whose V-cycle is their
+    coarse solve.  Returns (result, problem, levels); the LS hierarchy is
+    ``result.ls_mg``, HPMG-local's p-level Multigrid ``result.mg``."""
+    if params.dim == 3:
+        return solve_with_local_smoothing_hybrid(params, fine_mesh, device)
+    _no_df32_in_2d(params)
+    t_setup = time.perf_counter()
+    outer_dtype = number_dtype(params.number_type)
+    level_dtype = number_dtype(params.mg_number_type)
+    p = params.fe_degree_fine
+    min_level = max(params.min_level, 0)
+    fine = build_level(fine_mesh, p, device, outer_dtype)
+    problem = poisson.make_problem(fine.dofh, fine.hanging, fine.op, params.simulation_type)
+    if params.type == "HMG-local":
+        lsmg = build_local_smoothing_mg(fine.dofh, params.mg_data, device, level_dtype, min_level)
+        precond = PreconditionLS(lsmg, _global_keep(fine, level_dtype), outer_dtype)
+        mg = None
+        n_levels = len(lsmg.levels)
+    elif params.type == "HPMG-local":
+        degrees = polynomial_coarsening_sequence(p, "bisect")
+        plevels = [
+            level_in(fine, level_dtype) if d == p
+            else build_level(fine_mesh, d, device, level_dtype)
+            for d in degrees
+        ]
+        lsmg = build_local_smoothing_mg(
+            plevels[0].dofh, params.mg_data, device, level_dtype, min_level
+        )
+        ls_precond = PreconditionLS(lsmg, _global_keep(plevels[0], level_dtype), level_dtype)
+        mg = build_gc_preconditioner(plevels, params.mg_data, coarse_solve=ls_precond)
+        precond = PreconditionMG(mg, outer_dtype)
+        n_levels = len(degrees) + len(lsmg.levels) - 1
+    else:
+        raise ValueError(f"unknown local-smoothing type {params.type!r}")
+    result = _gather_solve(params, fine, problem, precond, n_levels, t_setup)
+    result.mg, result.ls_mg = mg, lsmg
+    return result, problem, [fine]
+
+
 def solve_with_amg(params: RunParameters, fine_mesh: AdaptiveMesh, device: torch.device):
     """AMG or AMGPETSc: a single-level solve on the gather engine, CG
     preconditioned by the algebraic solver alone (reference: solve_with_amg,
@@ -538,24 +728,20 @@ def run(params: RunParameters, device: str | torch.device | None = None):
     return dispatch_solve(params, mesh, device)
 
 
-def dispatch_solve(params: RunParameters, mesh: AdaptiveMesh, device: torch.device):
-    """The reference's solver-type switch (multigrid_throughput.cc:2337-2353)."""
+def dispatch_solve(params: RunParameters, mesh: AdaptiveMesh, device: str | torch.device | None):
+    """The reference's solver-type switch (multigrid_throughput.cc:2337-2353):
+    3D multigrid on the hybrid patch engine, 2D on the gather engine."""
+    device = resolve_device(device)
     if params.n_shards not in (0, 1):
         raise NotImplementedError(
             "sharded solves are not ported yet (ROADMAP item 13, multi-device)"
         )
-    # float32 contractions must stay full precision: TF32 raised CG from 3
-    # to 9 iterations on the reference (ops/hybrid.py:44-47 there)
-    torch.backends.cuda.matmul.allow_tf32 = False
     if params.type in ("AMG", "AMGPETSc"):
         return solve_with_amg(params, mesh, device)
-    if params.dim != 3:
-        raise NotImplementedError(
-            "2D multigrid runs on the gather engine, whose transfers are not "
-            "ported yet (ROADMAP item 11)"
-        )
     if params.type in ("HMG-global", "PMG", "HPMG"):
-        return solve_with_global_coarsening_hybrid(params, mesh, device)
+        if params.dim == 3:
+            return solve_with_global_coarsening_hybrid(params, mesh, device)
+        return solve_with_global_coarsening(params, mesh, device)
     if params.type in ("HMG-local", "HPMG-local"):
-        return solve_with_local_smoothing_hybrid(params, mesh, device)
+        return solve_with_local_smoothing(params, mesh, device)
     raise ValueError(f"unknown solver type {params.type!r}")

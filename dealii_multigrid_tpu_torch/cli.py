@@ -26,11 +26,7 @@ from .solvers.local_smoothing import level_mesh
 from .solvers.multigrid import PreconditionMG
 from .utils.device import describe_device, resolve_device
 from .utils.params import RunParameters
-from .utils.phases import (
-    format_per_level_table,
-    profile_preconditioner,
-    profile_preconditioner_per_level,
-)
+from .utils.phases import format_per_level_table, profile_preconditioner_per_level
 from .utils.table import ConvergenceTable
 from .utils.vtu import write_vtu
 
@@ -105,31 +101,28 @@ def run_config(params: RunParameters, table: ConvergenceTable, device: torch.dev
     table.add_value("converged", result.converged)
     table.add_value("time", result.time)
 
-    # per-phase MG columns (reference multigrid_throughput.cc:1381-1401),
-    # opt-in (ProfilePhases): each phase is timed in loops of its own
-    precond = _phase_precond(result, params) if params.profile_phases else None
-    phases = None
-    if precond is not None and result.rhs_used is not None:
-        phases = profile_preconditioner(precond, result.rhs_used)
-
-    # time_per_it is always total solve time per iteration; the reference's
-    # time_cg (solve time MINUS all MG phase time per iteration,
-    # multigrid_throughput.cc:1270-1283) needs the measured phases and is
-    # only emitted when ProfilePhases is on
-    per_it = result.time / max(result.n_iterations, 1)
-    table.add_value("time_per_it", per_it)
+    # time_per_it is the best timed solve per iteration.  With ProfilePhases
+    # the MG phase columns (reference multigrid_throughput.cc:1381-1401) and
+    # time_cg come from the one instrumented solve after the timed ones: its
+    # phases per iteration, and its iteration time minus their sum
+    # (:1270-1283), >= 0 because the phases are timed inside it
+    phases = result.phases
+    table.add_value("time_per_it", result.time / max(result.n_iterations, 1))
     if phases is not None:
-        table.add_value("time_cg", max(per_it - sum(phases.values()), 0.0))
+        table.add_value("time_cg", result.phase_iteration_time - sum(phases.values()))
     table.add_value("throughput", result.throughput)
     if phases is not None:
         for ph in ("pre", "residuum", "res", "cs", "pro", "edge_pro", "post"):
             table.add_value(f"time_{ph}", phases[ph])
-        table.add_value("time_to_mg", phases.get("to_mg", 0.0))
-        table.add_value("time_to_global", phases.get("to_global", 0.0))
+        table.add_value("time_to_mg", phases["to_mg"])
+        table.add_value("time_to_global", phases["to_global"])
         if params.verbose:
             # reference-shaped per-level phase matrix
-            # (multigrid_throughput.cc:1285-1379)
-            per_level = profile_preconditioner_per_level(precond, result.rhs_used)
+            # (multigrid_throughput.cc:1285-1379), each phase in loops of
+            # its own
+            per_level = profile_preconditioner_per_level(
+                _phase_precond(result, params), result.rhs_used
+            )
             print("\nMG phases per level (s, one V-cycle):")
             print(format_per_level_table(per_level))
 

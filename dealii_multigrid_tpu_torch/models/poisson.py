@@ -115,8 +115,7 @@ def assemble_problem(
     jxw = (h_d[:, None] ** dofh.dim) * qw_d[None, :]
     # raw cell integrals of f * phi
     b_cell = torch.matmul(rhs_fn(pts) * jxw, dev(B3))              # [nc, nloc]
-    F = torch.zeros(dofh.n_dofs, dtype=dtype, device=device)
-    F.index_add_(0, op.cell_dofs.reshape(-1), b_cell.reshape(-1))
+    F = op.cell_sum.scatter(b_cell.reshape(-1))
     # Dirichlet lift: x0 interpolates g on the boundary, then hanging
     # distribution makes it a conforming FE function
     x0 = torch.zeros(dofh.n_dofs, dtype=dtype, device=device)
@@ -187,9 +186,12 @@ def assemble_problem_hybrid(
     pts = lo_d[:, None, :] + h_d[:, None, None] * qp_d[None, :, :]
     jxw = (h_d[:, None] ** dim) * qw_d[None, :]
     b_cell = torch.matmul(rhs_fn(pts) * jxw, B3_d)               # [nc, nloc]
-    cslot = torch.as_tensor(cell_slots.reshape(-1), dtype=torch.int64, device=device)
-    raw = torch.zeros(hop.n_slots, dtype=dtype, device=device)
-    raw.index_add_(0, cslot, b_cell.reshape(-1))
+    # the cell-to-slot targets repeat inside a patch: the host sums them in
+    # float64 in one fixed order (index_add_ on the card would not)
+    raw = dev(np.bincount(
+        cell_slots.reshape(-1), weights=b_cell.reshape(-1).cpu().numpy(), minlength=hop.n_slots
+    ))
+    del b_cell
     if np.any(x0):
         raw = raw - hop.cell_apply_raw(dev(fmt.from_global(x0)))
     r = hop.apply_ct_faces(raw)

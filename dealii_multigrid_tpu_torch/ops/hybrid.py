@@ -18,15 +18,20 @@ The algebra is the JAX package's plain path (dealii_multigrid_tpu/ops/
 hybrid.py, every TPU layout variant off).  JAX's functional ``.at[]``
 updates become in-place writes on tensors this module allocated; every
 stage that reads values from before an update computes them first.
-Scatter-adds use ``index_add_``, which sums in a run-dependent order on
+Scatter-adds with duplicate targets are fixed-order gathers
+(ops/fixed_order.py), and a scatter-set whose duplicate targets get values
+equal only up to roundoff keeps one writer per target; both are built on
+the host from the index tables, so a float32 apply is bit-repeatable on
 CUDA.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..utils.device import to_tensor
+from .fixed_order import FixedOrderSum
 from .patch_stencil import matrix_band, patch_stencil
 
 
@@ -84,9 +89,56 @@ class HybridOperator:
     ) -> "HybridOperator":
         """Build from host tables (``hybrid_operator_tables`` or the JAX
         operator's data leaves as NumPy arrays, same keys).  The band of KS
-        and MS is read here, on the host, once."""
+        and MS and the fixed-order sum tables are made here, on the host,
+        once."""
         band = matrix_band(tables["KS"], tables["MS"])
-        return cls(tables_to_device(tables, device, dtype), meta, device, dtype, band)
+        op = cls(tables_to_device(tables, device, dtype), meta, device, dtype, band)
+        op._build_sums(tables, meta)
+        return op
+
+    def _build_sums(self, t: dict, meta: dict) -> None:
+        """Fixed-order tables of the three scatter-adds: per-node C^T
+        (``ct_sum``), each structured C^T round (``ct_face_sums``) and each
+        patch<->singleton cross table (``cross_sums``); and one writer per
+        slot for each structured C round (``c_round_writes``)."""
+        n, dev = meta["n_slots"], self.device
+        self.ct_sum = FixedOrderSum.build(t["ct_target"], n, dev)
+        c_rounds = meta["sf_c_rounds"] or tuple((i,) for i in range(len(meta["sf_levels"])))
+        self.c_round_writes = tuple(
+            _last_writers(np.concatenate([
+                np.asarray(part[0]).reshape(-1)
+                for i in rnd
+                for part in (t["sf_patch"][i], t["sf_single"][i])
+                if part is not None
+            ]), dev)
+            for rnd in c_rounds
+        )
+        rounds = meta["sf_ct_rounds"] or tuple(
+            (i,) for i in range(len(meta["sf_levels"]) - 1, -1, -1)
+        )
+        self.ct_face_sums = tuple(
+            FixedOrderSum.build(
+                np.concatenate([
+                    np.asarray(part[1]).reshape(-1)
+                    for i in rnd
+                    for part in (t["sf_patch"][i], t["sf_single"][i])
+                    if part is not None
+                ]),
+                n, dev,
+            )
+            for rnd in rounds
+        )
+        self.cross_sums = tuple(
+            None if tbl is None else FixedOrderSum.build(tbl[1], meta["NS"], dev)
+            for tbl in (t["cross"] or (None,) * 6)
+        )
+
+    def sum_tables(self) -> dict:
+        """name -> FixedOrderSum of this operator's scatter-adds."""
+        out = {"ct": self.ct_sum}
+        out.update({f"ct_faces{i}": s for i, s in enumerate(self.ct_face_sums)})
+        out.update({f"cross{i}": s for i, s in enumerate(self.cross_sums) if s is not None})
+        return out
 
     # ------------------------------------------------------- bucket views
     def _patches(self, x: torch.Tensor) -> torch.Tensor:
@@ -114,29 +166,29 @@ class HybridOperator:
             rounds = self.sf_c_rounds or tuple(
                 (i,) for i in range(len(self.sf_levels))
             )
-            for rnd in rounds:
-                idxs, vals_ = [], []
+            for rnd, (slots, pick) in zip(rounds, self.c_round_writes):
+                vals_ = []
                 for i in rnd:
                     if self.sf_patch[i] is not None:
-                        face, src, _m = self.sf_patch[i]
+                        _face, src, _m = self.sf_patch[i]
                         sv = x[src]                                  # [n, sub, sub]
                         plane = torch.einsum(
                             "nsj,is->nij", torch.einsum("nst,jt->nsj", sv, E1), E1
                         )
-                        idxs.append(face.reshape(-1))
                         vals_.append(plane.reshape(-1))
                     if self.sf_single[i] is not None:
-                        face, src, _m, pa, pb = self.sf_single[i]
+                        _face, src, _m, pa, pb = self.sf_single[i]
                         Ea, Eb = self.sf_Eh[pa], self.sf_Eh[pb]      # [n, n1, n1]
                         sv = x[src]
                         tmp = torch.einsum("nmk,njk->nmj", sv, Eb)
                         plane = torch.einsum("nmj,nim->nij", tmp, Ea)
-                        idxs.append(face.reshape(-1))
                         vals_.append(plane.reshape(-1))
-                # duplicate indices (slots on two covered faces) receive
-                # equal values, so an unordered scatter-set is well-defined
-                if idxs:
-                    x[torch.cat(idxs)] = torch.cat(vals_)
+                # a slot on two covered faces gets two values, equal up to
+                # roundoff; the round's last writer of each slot writes it
+                # (what a sequential scatter does), so that an unordered
+                # CUDA scatter cannot pick one at random
+                if vals_:
+                    x[slots] = torch.cat(vals_)[pick]
             x = x * self.dirichlet_keep
         return x
 
@@ -148,15 +200,16 @@ class HybridOperator:
         rounds = self.sf_ct_rounds or tuple(
             (i,) for i in range(len(self.sf_levels) - 1, -1, -1)
         )
-        for rnd in rounds:
-            idxs, vals_ = [], []
+        for rnd, sums in zip(rounds, self.ct_face_sums):
+            vals_ = []
             for i in rnd:
-                self._ct_faces_level(r, i, idxs, vals_)
-            r = r.index_add(0, torch.cat(idxs), torch.cat(vals_))
+                self._ct_faces_level(r, i, vals_)
+            r = sums.add_into(r.clone(), torch.cat(vals_))
         return r * self.sf_slave_keep
 
-    def _ct_faces_level(self, r, i, idxs, vals_) -> None:
-        """Collect one level's C^T face contributions (reads + GEMMs only)."""
+    def _ct_faces_level(self, r, i, vals_) -> None:
+        """Collect one level's C^T face contributions (reads + GEMMs only),
+        in the order of the round's sum table: patch faces, then singles."""
         E1 = self.sf_E1
         if self.sf_patch[i] is not None:
             _face, src, mask = self.sf_patch[i]
@@ -171,7 +224,6 @@ class HybridOperator:
             ) * mask
             tmp = torch.einsum("nij,is->nsj", plane, E1)
             contrib = torch.einsum("nsj,jt->nst", tmp, E1)
-            idxs.append(src.reshape(-1))
             vals_.append(contrib.reshape(-1))
         if self.sf_single[i] is not None:
             face, src, mask, pa, pb = self.sf_single[i]
@@ -179,14 +231,13 @@ class HybridOperator:
             plane = r[face] * mask
             tmp = torch.einsum("nij,nim->nmj", plane, Ea)
             contrib = torch.einsum("nmj,njk->nmk", tmp, Eb)
-            idxs.append(src.reshape(-1))
             vals_.append(contrib.reshape(-1))
 
     def apply_ct(self, r: torch.Tensor) -> torch.Tensor:
         if self.slave_rep.shape[0]:
             vals = r[self.slave_rep]
             r = r * self.slave_keep
-            r.index_add_(0, self.ct_target, self.ct_w * vals[self.ct_src])
+            self.ct_sum.add_into(r, self.ct_w * vals[self.ct_src])
             # broadcast master rep values to their duplicate slots (the two
             # index sets are disjoint)
             if self.refresh_slots.shape[0]:
@@ -250,12 +301,13 @@ class HybridOperator:
                     .reshape(NP * K * K, n1, n1)[ppos]
                 )
                 subT = sub.transpose(1, 2)
+                csum = self.cross_sums[2 * g + side_p]
                 if side_p == 0:
                     add_plo = add_plo + Z
-                    add_shi = add_shi.index_add(0, sidx, subT)
+                    add_shi = csum.add_into(add_shi, subT)
                 else:
                     add_phi = add_phi + Z
-                    add_slo = add_slo.index_add(0, sidx, subT)
+                    add_slo = csum.add_into(add_slo, subT)
             p_lo.add_(add_plo)
             p_hi.add_(add_phi)
             s_lo.add_(add_slo)
@@ -304,6 +356,16 @@ class HybridOperator:
         r = self.apply_ct(r)
         # identity on constrained DoFs (reference operator.h:152-183)
         return r * self.constrained_keep + x * (1.0 - self.constrained_keep)
+
+
+def _last_writers(idx: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(unique targets, position of each one's last occurrence in idx)."""
+    rev = idx[::-1]
+    slots, first = np.unique(rev, return_index=True)
+    return (
+        torch.as_tensor(slots, dtype=torch.int64, device=device),
+        torch.as_tensor(len(idx) - 1 - first, dtype=torch.int64, device=device),
+    )
 
 
 def make_hybrid_operator(fmt, hanging, device, dtype) -> HybridOperator:

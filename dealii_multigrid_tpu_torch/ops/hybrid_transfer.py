@@ -23,7 +23,9 @@ Dirichlet set is boundary plus refinement edge) the same tables run without
 the constraints: prolong skips C and the constrained mask, restrict masks by
 ownership only, and the coarse tail is the exchange alone.  Every padded
 row index points at an explicit zero row that the apply appends, never out
-of range.
+of range.  Restriction's slot-table scatters (``irr_patch``, ``irr_id``,
+the singleton buckets) add through one fixed-order table
+(ops/fixed_order.py), so a float32 restriction is bit-repeatable on CUDA.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 from ..mesh.dof import local_node_indices
 from ..mesh.octree import morton_encode
 from . import tensor
+from .fixed_order import FixedOrderSum
 from .hybrid import HybridOperator, tables_to_device
 from .hybrid_format import HybridFormat, cell_slot_table
 
@@ -74,9 +77,9 @@ class HybridTransfer:
                     dtype: torch.dtype, ls_mode: bool = False) -> "HybridTransfer":
         """Build from host tables (``hybrid_transfer_tables`` or the JAX
         transfer's data leaves as NumPy arrays, same keys)."""
-        return cls(
-            tables_to_device(tables, device, dtype), meta, fine_op, coarse_op, ls_mode
-        )
+        tr = cls(tables_to_device(tables, device, dtype), meta, fine_op, coarse_op, ls_mode)
+        tr.restrict_sum = _restrict_sum(tables, meta, coarse_op.patch_slots, device)
+        return tr
 
     def _interp_sub(self, sub_vals: torch.Tensor) -> torch.Tensor:
         """[n, sub, sub, sub] -> [n, S_f, S_f, S_f] via three axis GEMMs."""
@@ -163,6 +166,8 @@ class HybridTransfer:
                 vpad = torch.cat([v, v.new_zeros((1, sub, sub, sub))])
                 acc_p[:, ox : ox + sub, oy : oy + sub, oz : oz + sub] += vpad[child_rows]
             if self.id_bucket is not None:
+                # one fine patch per coarse patch (checked at build time):
+                # one addition per target, exact and repeatable
                 fidx, cidx = self.id_bucket
                 acc_p.index_add_(0, cidx, rp[fidx])
             for (_sr, fine_rows), (dx, dy, dz) in zip(
@@ -177,22 +182,18 @@ class HybridTransfer:
                 # fine_rows pads with NP_f: the appended zero window
                 wpad = torch.cat([win, win.new_zeros((1,) + win.shape[1:])])
                 acc_p[:, dx:, dy:, dz:] += wpad[fine_rows]
+        # the slot-table scatters, in the order of restrict_sum's sources
+        parts = []
         if self.irr_patch is not None:
-            fidx, sub_slots = self.irr_patch
-            v = self._interp_sub_t(rp[fidx])
-            acc.index_add_(0, sub_slots.reshape(-1), v.reshape(-1))
+            parts.append(self._interp_sub_t(rp[self.irr_patch[0]]).reshape(-1))
         if self.irr_id is not None:
-            fidx, slots = self.irr_id
-            acc.index_add_(0, slots.reshape(-1), rp[fidx].reshape(-1))
+            parts.append(rp[self.irr_id[0]].reshape(-1))
         if self.NS_f:
             rs = rf[self.NP_f * S_f**3 :].view(self.NS_f, self.nloc_f)
-            for sidx, src_slots, M in self.single_buckets:
-                v = torch.matmul(rs[sidx], M)
-                acc.index_add_(0, src_slots.reshape(-1), v.reshape(-1))
-            if self.single_fast:
-                acc_s = cop._singles(acc)
-                for sidx, crow, M in self.single_fast:
-                    acc_s.index_add_(0, crow, torch.matmul(rs[sidx], M))
+            for sidx, _slots, M in self.single_buckets + self.single_fast:
+                parts.append(torch.matmul(rs[sidx], M).reshape(-1))
+        if parts:
+            self.restrict_sum.add_into(acc, torch.cat(parts))
         return self._restrict_coarse_tail(acc)
 
     def _restrict_coarse_tail(self, acc: torch.Tensor) -> torch.Tensor:
@@ -553,6 +554,29 @@ def hybrid_transfer_tables(
         "n_slots_c": coarse_fmt.n_slots,
     }
     return tables, meta
+
+
+def _restrict_sum(t: dict, meta: dict, patch_slots_c: int, device) -> FixedOrderSum | None:
+    """The fixed-order table of restriction's slot-table scatters: the
+    coarse slot of every source value of ``irr_patch``, ``irr_id``, the
+    singleton buckets and the whole-row singleton buckets, in that order."""
+    if t["id_bucket"] is not None:
+        cidx = np.asarray(t["id_bucket"][1])
+        assert len(np.unique(cidx)) == len(cidx), "coarse patch with two identity children"
+    targets = []
+    for key in ("irr_patch", "irr_id"):
+        if t[key] is not None:
+            targets.append(np.asarray(t[key][1]).reshape(-1))
+    for _sidx, slots, _M in t["single_buckets"]:
+        targets.append(np.asarray(slots).reshape(-1))
+    for _sidx, crow, M in t["single_fast"]:
+        nloc_c = np.asarray(M).shape[1]
+        targets.append(
+            (patch_slots_c + np.asarray(crow)[:, None] * nloc_c + np.arange(nloc_c)).reshape(-1)
+        )
+    if not targets:
+        return None
+    return FixedOrderSum.build(np.concatenate(targets), meta["n_slots_c"], device)
 
 
 def make_hybrid_transfer(fine_fmt, coarse_fmt, fine_op: HybridOperator,

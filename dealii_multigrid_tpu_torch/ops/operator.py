@@ -4,7 +4,8 @@ Capability mirror of the reference's ``Operator<dim, n_components, Number>``
 (include/operator.h:11-557): constrained vmult with identity on constrained
 DoFs and the inverse-diagonal computation.  The cell loop is ``gather ->
 [n_cells, n_loc] @ [n_loc, n_loc] GEMM (one Cartesian reference element
-matrix) -> index_add_``; constraints are separate padded gather and scatter
+matrix) -> fixed-order row sums`` (ops/fixed_order.py: a float32 apply is
+bit-repeatable on CUDA); constraints are separate padded gather and scatter
 passes over the (few) constrained DoFs.  The hybrid patch engine
 (ops/hybrid.py) is the fast path in 3D; this operator carries the "AMG" and
 "AMGPETSc" solver types, in 2D and 3D.  ``split_boundary_constraints`` and
@@ -20,6 +21,7 @@ import torch
 
 from ..mesh.dof import Constraints, DoFHandler
 from . import element
+from .fixed_order import FixedOrderSum
 
 
 @dataclass(frozen=True)
@@ -27,12 +29,14 @@ class ConstraintTable:
     """Padded hanging-node constraint table on the device.
 
     u[slave] = sum_k weights[., k] * u[masters[., k]]; padding entries carry
-    master 0 and weight 0.
+    master 0 and weight 0.  ``master_sum`` gathers the transpose's
+    contributions per master in a fixed order.
     """
 
     slave: torch.Tensor    # int64 [n_s]
     masters: torch.Tensor  # int64 [n_s, K]
     weights: torch.Tensor  # float [n_s, K]
+    master_sum: FixedOrderSum
 
 
 def distribute(u: torch.Tensor, ct: ConstraintTable) -> torch.Tensor:
@@ -52,7 +56,7 @@ def distribute_transpose(r: torch.Tensor, ct: ConstraintTable) -> torch.Tensor:
     contrib = (ct.weights * r[ct.slave][:, None]).to(r.dtype)
     out = r.clone()
     out[ct.slave] = 0
-    return out.index_add_(0, ct.masters.reshape(-1), contrib.reshape(-1))
+    return ct.master_sum.add_into(out, contrib.reshape(-1))
 
 
 @dataclass(frozen=True)
@@ -64,6 +68,7 @@ class LaplaceOperator:
     """
 
     cell_dofs: torch.Tensor     # int64 [n_cells, n_loc]
+    cell_sum: FixedOrderSum     # cell slots -> DoFs, in a fixed order
     scale: torch.Tensor         # float [n_cells] — h^(dim-2)
     elem: torch.Tensor          # float [n_loc, n_loc] — reference stiffness (symmetric)
     hanging: ConstraintTable
@@ -82,9 +87,7 @@ class LaplaceOperator:
     def cell_apply_raw(self, u: torch.Tensor) -> torch.Tensor:
         """A_raw u: the unconstrained FE Laplacian (no constraint algebra)."""
         rcell = torch.matmul(u[self.cell_dofs], self.elem) * self.scale[:, None]
-        return torch.zeros_like(u).index_add_(
-            0, self.cell_dofs.reshape(-1), rcell.reshape(-1)
-        )
+        return self.cell_sum.scatter(rcell.reshape(-1))
 
     def apply_c(self, u: torch.Tensor) -> torch.Tensor:
         # zero Dirichlet first: hanging masters may be boundary DoFs, and the
@@ -154,14 +157,21 @@ def make_operator(
     def val(a):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
+    masters = hang.masters if hang.masters.size else np.zeros((0, K), np.int64)
     return LaplaceOperator(
         cell_dofs=idx(dofh.cell_dofs),
+        cell_sum=FixedOrderSum.build(dofh.cell_dofs, dofh.n_dofs, device),
         scale=val(scale),
         elem=val(element.laplace_element_matrix(dim, p)),
         hanging=ConstraintTable(
             idx(hang.slave),
-            idx(hang.masters if hang.masters.size else np.zeros((0, K))),
+            idx(masters),
             val(hang.weights if hang.weights.size else np.zeros((0, K))),
+            # padding entries (weight 0) take no part in the sums
+            FixedOrderSum.build(
+                np.where(hang.weights != 0, masters, -1) if hang.weights.size else masters,
+                dofh.n_dofs, device,
+            ),
         ),
         dirichlet=idx(dirichlet),
         constrained=idx(constrained),

@@ -76,11 +76,16 @@ def _ell_tables(A: sp.csr_matrix) -> tuple[np.ndarray, np.ndarray]:
     return idx, vals
 
 
-def _to_ell(A: sp.csr_matrix, dtype: torch.dtype, with_transpose: bool = False) -> ELLMatrix:
-    """The ELL tables of ``A`` as host tensors (build_amg moves them)."""
+def _to_ell(A: sp.csr_matrix, dtype: torch.dtype, with_transpose: bool = False,
+            device: torch.device | None = None) -> ELLMatrix:
+    """The ELL tables of ``A`` as tensors on ``device`` (None: the host;
+    build_amg moves them itself)."""
     idx, vals = _ell_tables(A)
-    t = _to_ell(A.T.tocsr(), dtype) if with_transpose else None
-    return ELLMatrix(torch.as_tensor(idx), torch.as_tensor(vals, dtype=dtype), A.shape, t)
+    t = _to_ell(A.T.tocsr(), dtype, device=device) if with_transpose else None
+    return ELLMatrix(
+        torch.as_tensor(idx, device=device), torch.as_tensor(vals, dtype=dtype, device=device),
+        A.shape, t,
+    )
 
 
 def _greedy_aggregate(S: sp.csr_matrix) -> np.ndarray:

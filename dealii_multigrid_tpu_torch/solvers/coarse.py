@@ -34,12 +34,18 @@ from .chebyshev import ChebyshevSmoother, estimate_eigenvalue_range
 DIRECT_SOLVER_MAX_DOFS = 8000
 
 
-def assemble_sparse_matrix(dofh: DoFHandler, hanging: Constraints) -> sp.csr_matrix:
+def assemble_sparse_matrix(
+    dofh: DoFHandler, hanging: Constraints, cell_weights: np.ndarray | None = None
+) -> sp.csr_matrix:
     """Host-side assembly of the constrained system matrix C^T B C + I_c
-    (reference: Operator::get_trilinos_system_matrix, operator.h:244-287)."""
+    (reference: Operator::get_trilinos_system_matrix, operator.h:244-287).
+    ``cell_weights`` scales each cell's stiffness (a cellwise constant
+    coefficient, as make_operator(cell_weights=...))."""
     mesh, dim, p = dofh.mesh, dofh.dim, dofh.degree
     elem = element.laplace_element_matrix(dim, p)
     scale = mesh.h(mesh.level).astype(np.float64) ** (dim - 2)
+    if cell_weights is not None:
+        scale = scale * np.asarray(cell_weights, np.float64)
     nloc = dofh.n_loc
     n = dofh.n_dofs
     rows = np.repeat(dofh.cell_dofs.astype(np.int64), nloc, axis=1).reshape(-1)

@@ -4,71 +4,135 @@ The reference instruments pre-smooth / residuum / restrict / coarse /
 prolong / edge-prolong / post-smooth per level per repetition through
 deal.II's Multigrid signals (multigrid_throughput.cc:1152-1234) and prints
 them as ``time_pre .. time_post`` plus the two preconditioner-boundary
-timers ``time_to_mg`` / ``time_to_global`` (:1381-1401).
+timers ``time_to_mg`` / ``time_to_global`` (:1381-1401); ``time_cg`` is the
+iteration time minus their sum (:1270-1283).
 
-Here a phase is applied at all its levels ``n_loop`` times after one
-warm-up application, between two CUDA events on the card and two readings
-of ``perf_counter`` on the CPU; the result is seconds per application, the
-best of three such measurements.  On the card the events bracket the
-device's work as the host enqueues it, so a phase whose kernels are short
-reads as its host dispatch time, which is what a solve pays for it too.
+Two measurements live here:
 
-Handles both the global-coarsening Multigrid and LocalSmoothingMGHybrid;
-for the latter ``edge_pro`` times the refinement-edge interface operators
-(interface_down / interface_up, reference include/operator.h:191-226) and
-to_mg / to_global time the copy_to_mg / copy_from_mg index maps.
+  * ``PhaseRecorder`` and ``instrument``: the in-solve timers.  Every
+    V-cycle phase runs through its object's ``hook`` (solvers/multigrid.py,
+    solvers/local_smoothing.py); ``instrument`` gives a copy of a
+    preconditioner whose hooks record each phase of the real V-cycles, and
+    ``api.mg_solve`` runs one such solve after the timed ones.  On the card
+    two CUDA events bracket each phase and the solve on one stream, so the
+    phases are disjoint parts of the solve and their sum cannot exceed it;
+    on the CPU ``perf_counter`` does the same.
+  * ``profile_preconditioner_per_level``: each phase at each level applied
+    in loops of its own (after one warm-up, the best of three measurements
+    of ``n_loop`` applications); the CLI's verbose per-level table.
+    ``profile_preconditioner`` sums it over the levels.
 
-The phase inputs are random vectors from fixed NumPy seeds, drawn in the
-global layout and spread to the slots with ``fmt.from_global``: slots that
-hold the same DoF must carry the same value, or the operator's constraint
-scatter is not defined.
+Both handle the global-coarsening Multigrid and both local-smoothing
+hierarchies; for the latter ``edge_pro`` times the refinement-edge
+interface operators (include/operator.h:191-226) and to_mg / to_global the
+copy_to_mg / copy_from_mg maps.  The loop inputs are random vectors from
+fixed NumPy seeds, drawn in the global layout: a hybrid level spreads them
+to its slots with ``fmt.from_global`` (slots that hold one DoF must carry
+one value, or the constraint scatter is not defined); a gather-engine
+vector is in the global layout already.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
+from ..ops.hybrid import HybridOperator
 from ..solvers.multigrid import PreconditionMG
 
 PHASES = ("pre", "residuum", "res", "cs", "pro", "edge_pro", "post")
+KEYS = PHASES + ("to_mg", "to_global")
+
+
+class PhaseRecorder:
+    """A phase hook that times every call: CUDA events on the card,
+    ``perf_counter`` on the CPU.  ``span`` times a whole solve the same
+    way, so the phases' sum is at most the span."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.seconds = dict.fromkeys(KEYS, 0.0)
+        self._events: list = []
+
+    def _mark(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    def _elapsed(self, start, stop) -> float:
+        return start.elapsed_time(stop) * 1e-3 if self.cuda else stop - start
+
+    def __call__(self, phase: str, fn, *args):
+        start = self._mark()
+        out = fn(*args)
+        self._events.append((phase, start, self._mark()))
+        return out
+
+    def span(self, fn):
+        """(fn(), seconds of the call); settles every recorded phase."""
+        start = self._mark()
+        out = fn()
+        stop = self._mark()
+        if self.cuda:
+            stop.synchronize()
+        for phase, a, b in self._events:
+            self.seconds[phase] += self._elapsed(a, b)
+        self._events.clear()
+        return out, self._elapsed(start, stop)
+
+
+def instrument(precond, hook):
+    """A copy of ``precond`` whose V-cycle phases run through ``hook``, or
+    None for a preconditioner without multigrid phases (AMG, AMGPETSc)."""
+    if isinstance(precond, PreconditionMG):
+        return dataclasses.replace(
+            precond, mg=dataclasses.replace(precond.mg, hook=hook), hook=hook
+        )
+    lsmg = getattr(precond, "lsmg", None)
+    if lsmg is not None:  # api.PreconditionLS
+        return dataclasses.replace(precond, lsmg=dataclasses.replace(lsmg, hook=hook))
+    if hasattr(precond, "copy_to_mg"):  # a bare local-smoothing hierarchy
+        return dataclasses.replace(precond, hook=hook)
+    return None
+
+
+# ---------------------------------------------------------------------------
+# phases timed in loops of their own
+# ---------------------------------------------------------------------------
 
 
 def _loop_time(fn, device: torch.device, n_loop: int = 8, reps: int = 3) -> float:
     """Seconds per application of ``fn()``: after one warm-up, the best of
     ``reps`` measurements of ``n_loop`` applications each, between two CUDA
-    events (card) or clock readings (CPU).  The best, because the solve's
-    time is the best of its repetitions too and the host's speed varies."""
+    events (card) or clock readings (CPU)."""
+    def loop():
+        for _ in range(n_loop):
+            fn()
+
     fn()
+    rec = PhaseRecorder(device)
     best = float("inf")
     for _ in range(reps):
-        if device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
+        if rec.cuda:
             torch.cuda.synchronize(device)
-            start.record()
-            for _ in range(n_loop):
-                fn()
-            stop.record()
-            torch.cuda.synchronize(device)
-            seconds = start.elapsed_time(stop) * 1e-3
-        else:
-            t0 = time.perf_counter()
-            for _ in range(n_loop):
-                fn()
-            seconds = time.perf_counter() - t0
-        best = min(best, seconds / n_loop)
+        best = min(best, rec.span(loop)[1] / n_loop)
     return best
 
 
 def _consistent_random(op, dtype: torch.dtype, seed: int) -> torch.Tensor:
-    """A random slot vector of ``op``'s layout whose duplicate slots agree."""
-    if op.fmt is None:
-        raise ValueError("phase profiling needs operators built by make_hybrid_operator")
+    """A random vector of ``op``'s layout: for a hybrid operator a slot
+    vector whose duplicate slots agree, else a global-layout vector."""
     g = np.random.default_rng(seed).standard_normal(op.n_dofs)
-    return torch.as_tensor(op.fmt.from_global(g), dtype=dtype, device=op.device)
+    if isinstance(op, HybridOperator):
+        if op.fmt is None:
+            raise ValueError("phase profiling needs operators built by make_hybrid_operator")
+        g = op.fmt.from_global(g)
+    return torch.as_tensor(g, dtype=dtype, device=op.device)
 
 
 def _gc_vectors(mg, dtype):
@@ -79,8 +143,9 @@ def _gc_vectors(mg, dtype):
 
 
 def _ls_vectors(lsmg, dtype):
-    d = [_consistent_random(lv.op, dtype, 300 + i) for i, lv in enumerate(lsmg.levels)]
-    x = [_consistent_random(lv.op, dtype, 400 + i) for i, lv in enumerate(lsmg.levels)]
+    ops = [getattr(lv, "op", lv) for lv in lsmg.levels]
+    d = [_consistent_random(op, dtype, 300 + i) for i, op in enumerate(ops)]
+    x = [_consistent_random(op, dtype, 400 + i) for i, op in enumerate(ops)]
     return d, x
 
 
@@ -108,15 +173,6 @@ def _ls_phase_fns(lsmg, d, x, l: int) -> dict:
     }
 
 
-def _summed(level_fns: list, device, n_loop: int) -> dict:
-    """Each phase applied at all its levels per application, timed once."""
-    out = {ph: 0.0 for ph in PHASES}
-    for ph in level_fns[0] if level_fns else ():
-        fns = [f[ph] for f in level_fns]
-        out[ph] = _loop_time(lambda: [f() for f in fns], device, n_loop)
-    return out
-
-
 def _per_level(level_fns: list, device, n_loop: int) -> dict:
     out = {ph: [] for ph in PHASES}
     for fns in level_fns:
@@ -124,45 +180,6 @@ def _per_level(level_fns: list, device, n_loop: int) -> dict:
             if ph == "cs":
                 continue
             out[ph].append(_loop_time(fns[ph], device, n_loop) if ph in fns else 0.0)
-    return out
-
-
-def profile_v_cycle(mg, b: torch.Tensor, n_loop: int = 8) -> dict:
-    """Per-phase seconds (one V-cycle, summed over levels) for a
-    global-coarsening Multigrid (solvers/multigrid.py); ``edge_pro`` is 0."""
-    d, x = _gc_vectors(mg, b.dtype)
-    fns = [_gc_phase_fns(mg, d, x, l) for l in range(1, mg.n_levels)]
-    out = _summed(fns, b.device, n_loop)
-    out["cs"] = _loop_time(lambda: mg.coarse_solve(d[0]), b.device, n_loop)
-    return out
-
-
-def profile_ls_cycle(lsmg, b: torch.Tensor, n_loop: int = 8) -> dict:
-    """Per-phase seconds for a LocalSmoothingMGHybrid, including the
-    refinement-edge interface work (edge_pro) and the copy_to_mg /
-    copy_from_mg boundaries (to_mg / to_global); ``b`` is a vector of the
-    active mesh's slot layout."""
-    d, x = _ls_vectors(lsmg, b.dtype)
-    fns = [_ls_phase_fns(lsmg, d, x, l) for l in range(1, len(lsmg.levels))]
-    out = _summed(fns, b.device, n_loop)
-    out["cs"] = _loop_time(lambda: lsmg.coarse_solve(d[0]), b.device, n_loop)
-
-    def to_mg():
-        outs = []
-        for lev in lsmg.levels:
-            dd = b.new_zeros(lev.n_dofs)
-            dd[lev.to_slots] = b[lev.to_src]
-            outs.append(dd * lev.keep)
-        return outs
-
-    def to_global():
-        o = b.new_zeros(lsmg.n_dofs_global)
-        for lev, u in zip(lsmg.levels, x):
-            o[lev.from_slots] = u[lev.from_src]
-        return o
-
-    out["to_mg"] = _loop_time(to_mg, b.device, n_loop)
-    out["to_global"] = _loop_time(to_global, b.device, n_loop)
     return out
 
 
@@ -181,13 +198,36 @@ def profile_v_cycle_per_level(mg, b: torch.Tensor, n_loop: int = 8) -> dict:
 
 
 def profile_ls_cycle_per_level(lsmg, b: torch.Tensor, n_loop: int = 8) -> dict:
-    """Per-level per-phase seconds for a LocalSmoothingMGHybrid (see
+    """Per-level per-phase seconds for a local-smoothing hierarchy (see
     profile_v_cycle_per_level), including the refinement-edge interface
     work per level."""
     d, x = _ls_vectors(lsmg, b.dtype)
     fns = [_ls_phase_fns(lsmg, d, x, l) for l in range(1, len(lsmg.levels))]
     out = _per_level(fns, b.device, n_loop)
     out["cs"] = [_loop_time(lambda: lsmg.coarse_solve(d[0]), b.device, n_loop)]
+    return out
+
+
+def _sum_levels(per_level: dict) -> dict:
+    return {ph: float(sum(per_level[ph])) for ph in PHASES}
+
+
+def profile_v_cycle(mg, b: torch.Tensor, n_loop: int = 8) -> dict:
+    """Per-phase seconds (one V-cycle: the per-level times summed over
+    levels) for a global-coarsening Multigrid (solvers/multigrid.py);
+    ``edge_pro`` is 0."""
+    return _sum_levels(profile_v_cycle_per_level(mg, b, n_loop))
+
+
+def profile_ls_cycle(lsmg, b: torch.Tensor, n_loop: int = 8) -> dict:
+    """Per-phase seconds for a local-smoothing hierarchy of either engine
+    (the per-level times summed), including the refinement-edge interface
+    work (edge_pro) and the copy_to_mg / copy_from_mg boundaries (to_mg /
+    to_global); ``b`` is a vector of the active mesh's layout."""
+    out = _sum_levels(profile_ls_cycle_per_level(lsmg, b, n_loop))
+    _, x = _ls_vectors(lsmg, b.dtype)
+    out["to_mg"] = _loop_time(lambda: lsmg.copy_to_mg(b), b.device, n_loop)
+    out["to_global"] = _loop_time(lambda: lsmg.copy_from_mg(x, b), b.device, n_loop)
     return out
 
 
@@ -211,8 +251,8 @@ def format_per_level_table(per_level: dict) -> str:
 
 
 def _ls_of(precond):
-    """(LocalSmoothingMGHybrid, its level dtype) of a PreconditionLS wrapper
-    (api.py) or a bare hierarchy."""
+    """(local-smoothing hierarchy, its level dtype) of a PreconditionLS
+    wrapper (api.py) or a bare hierarchy."""
     lsmg = getattr(precond, "lsmg", precond)
     return lsmg, lsmg.levels[-1].keep.dtype
 

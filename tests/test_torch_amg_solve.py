@@ -115,5 +115,11 @@ def test_df32_with_amg_raises():
 
 
 def test_2d_multigrid_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tapi.run(params(TParams, "HMG-global", 3, 2, dim=2), "cpu")
+    """2D multigrid (ROADMAP item 11) solves on the gather engine now; what
+    still raises in 2D names its item (13, sharding)."""
+    res, _, _ = tapi.run(params(TParams, "HMG-global", 3, 2, dim=2), "cpu")
+    assert res.converged and res.mg is not None
+    prm = params(TParams, "HMG-global", 3, 2, dim=2)
+    prm.n_shards = 2
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tapi.run(prm, "cpu")

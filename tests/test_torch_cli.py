@@ -24,7 +24,7 @@ from dealii_multigrid_tpu.utils.table import ConvergenceTable as JTable
 from dealii_multigrid_tpu_torch import api as tapi, cli as tcli
 from dealii_multigrid_tpu_torch.mesh import dof as TD, generators as TG
 from dealii_multigrid_tpu_torch.parallel import metrics as tmetrics, partition as tpartition
-from dealii_multigrid_tpu_torch.solvers.multigrid import PreconditionMG
+from dealii_multigrid_tpu_torch.solvers.multigrid import PreconditionMG, untimed
 from dealii_multigrid_tpu_torch.utils import timer, vtu
 from dealii_multigrid_tpu_torch.utils.params import RunParameters as TParams
 from dealii_multigrid_tpu_torch.utils.phases import (
@@ -50,6 +50,7 @@ CONFIGS = {
     "pmg_cg_coarse": {"Type": "PMG", "CoarseGridSolverType": "cg_with_chebyshev"},
     "amg": {"Type": "AMG", "ProfilePhases": True},
     "amg_2d": {"Type": "AMGPETSc", "Dim": 2, "NRefGlobal": 3},
+    "hpmg_2d": {"Type": "HPMG", "Dim": 2, "NRefGlobal": 3},
 }
 
 
@@ -90,6 +91,7 @@ def test_cli_prints_the_jax_cli_columns(tmp_path, capsys, name):
     if CONFIGS[name].get("ProfilePhases") and name != "amg":
         assert "time_pre" in header and "time_to_global" in header and "time_cg" in header
         assert float(trow["time_pre"]) > 0 and float(trow["time_post"]) > 0
+        assert float(trow["time_cg"]) > 0
     else:
         assert "time_pre" not in header
 
@@ -192,6 +194,30 @@ def test_profile_ls_phases(mg_type):
     per_level = profile_preconditioner_per_level(res.ls_mg, res.rhs_used, n_loop=2)
     assert len(per_level["edge_pro"]) == len(res.ls_mg.levels) - 1
     assert all(t > 0.0 for t in per_level["edge_pro"])
+
+
+@pytest.mark.parametrize(
+    "mg_type,dim", [("HMG-global", 3), ("HPMG-local", 3), ("HMG-local", 3), ("HMG-global", 2)]
+)
+def test_time_cg_comes_from_the_instrumented_solve(tmp_path, capsys, mg_type, dim):
+    """ProfilePhases runs one more solve whose V-cycle phases are timed
+    inside it: the phases sum to at most its iteration time, time_cg is the
+    difference (> 0), and the timed solves stay uninstrumented.  (The JAX
+    CLI prints no phase columns in 2D; the port does.)"""
+    prm = small_params(mg_type)
+    prm.dim = dim
+    prm.profile_phases = True
+    res, _, _ = tapi.run(prm, "cpu")
+    assert set(res.phases) == set(PHASES) | {"to_mg", "to_global"}
+    assert 0 < sum(res.phases.values()) <= res.phase_iteration_time
+    assert res.mg is None or res.mg.hook is untimed
+    assert res.ls_mg is None or res.ls_mg.hook is untimed
+    path = write_config(tmp_path, "hmg_global_phases", Type=mg_type, MGNumberType="float", Dim=dim)
+    assert tcli.main([path, "--device", "cpu"]) == 0
+    header, row = parse_table(capsys.readouterr().out)
+    trow = dict(zip(header, row))
+    phase_sum = sum(float(trow[f"time_{k}"]) for k in res.phases)
+    assert float(trow["time_cg"]) > 0 and phase_sum > 0
 
 
 def test_phase_vectors_are_consistent_and_seeded():

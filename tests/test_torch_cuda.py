@@ -11,8 +11,9 @@ import pytest
 import torch
 
 from dealii_multigrid_tpu_torch import api
+from dealii_multigrid_tpu_torch.models import poisson
 from dealii_multigrid_tpu_torch.ops import patch_stencil as ps, tensor
-from dealii_multigrid_tpu_torch.ops.hybrid_format import _assembled_1d
+from dealii_multigrid_tpu_torch.ops.hybrid_format import _assembled_1d, cell_slot_table
 from dealii_multigrid_tpu_torch.utils.params import RunParameters
 
 #: (NP, S) of the patch levels L7..L2 of quadrant r=7 p=4 (chip_smoke.py)
@@ -247,3 +248,91 @@ def test_cli_and_phase_timers_on_card(cuda, tmp_path, capsys):
                 "time_edge_pro", "time_post", "time_to_mg", "time_to_global"):
         assert float(cells[key]) > 0.0, key
     assert "MG phases per level" in out
+    assert float(cells["time_cg"]) > 0.0             # the instrumented solve's remainder
+
+
+# --- fixed-order sums, 2D multigrid and Stokes ---
+
+
+def fixed_order_sites(dev):
+    """(name, fn, float32 input) of each fixed-order site at a small size:
+    the hybrid operator, the Poisson right-hand side's assembly and h- and
+    p-restrictions (3D r=4), the gather operator, the h- and p-restrictions
+    of a 2D HPMG hierarchy and the LS restriction of a 2D HMG-local one
+    (r=6)."""
+    rng = np.random.default_rng(30)
+    sites = []
+    for mg_type in ("HMG-global", "HPMG"):
+        res, _, levels = api.run(small_params(mg_type, 4, 4, "float", "float"), dev)
+        fine = levels[-1]
+        x = torch.as_tensor(fine.fmt.from_global(rng.standard_normal(fine.dofh.n_dofs)),
+                            dtype=torch.float32, device=dev)
+        if mg_type == "HMG-global":
+            sites.append(("HybridOperator.vmult", fine.op.vmult, x))
+            slots = cell_slot_table(fine.fmt)
+            sites.append(("Poisson RHS", lambda _, fine=fine, slots=slots: (
+                poisson.assemble_problem_hybrid(
+                    fine.dofh, fine.hanging, fine.op, slots, fine.fmt, "Gaussian")[1]), x))
+        sites.append((f"HybridTransfer.restrict {mg_type}", res.mg.transfers[-1].restrict, x))
+    for mg_type in ("HPMG", "HMG-local"):
+        prm = small_params(mg_type, 6, 4, "float", "float")
+        prm.dim = 2
+        res, _, levels = api.run(prm, dev)
+        if mg_type == "HPMG":
+            op = levels[-1].op
+            sites.append(("LaplaceOperator.vmult", op.vmult, torch.as_tensor(
+                rng.standard_normal(op.n_dofs), dtype=torch.float32, device=dev)))
+            for tr in (res.mg.transfers[-1], res.mg.transfers[2]):
+                sites.append(("TwoLevelTransfer.restrict", tr.restrict, torch.as_tensor(
+                    rng.standard_normal(tr.n_dofs_fine), dtype=torch.float32, device=dev)))
+        else:
+            lt = res.ls_mg.transfers[-1]
+            sites.append(("LSTransfer.restrict", lt.restrict, torch.as_tensor(
+                rng.standard_normal(lt.n_f), dtype=torch.float32, device=dev)))
+    return sites
+
+
+def test_fixed_order_sites_are_bit_repeatable_on_card(cuda):
+    """Each fixed-order site, 20 runs of one float32 input: bit-equal."""
+    for name, fn, x in fixed_order_sites(cuda):
+        ref = fn(x)
+        assert all(torch.equal(fn(x), ref) for _ in range(19)), name
+
+
+@pytest.mark.parametrize("mg_type", ["HMG-global", "PMG", "HPMG", "HMG-local", "HPMG-local"])
+def test_2d_solve_on_card_matches_cpu(cuda, mg_type):
+    prm = small_params(mg_type, 4, 2, "double", "double")
+    prm.dim = 2
+    res_gpu, _, _ = api.run(prm, cuda)
+    res_cpu, _, _ = api.run(prm, "cpu")
+    assert res_gpu.converged and res_gpu.n_iterations == res_cpu.n_iterations
+    assert res_gpu.x.is_cuda
+    rel = (res_gpu.x.cpu() - res_cpu.x).abs().max() / res_cpu.x.abs().max()
+    assert float(rel) <= 1e-8
+
+
+def test_stokes_on_card_matches_cpu(cuda):
+    from dealii_multigrid_tpu_torch.mesh import generators
+    from dealii_multigrid_tpu_torch.models import stokes
+    from dealii_multigrid_tpu_torch.solvers.gmres import gmres_solve
+    from dealii_multigrid_tpu_torch.utils.params import MultigridParameters
+
+    mg = MultigridParameters()
+    mg.smoother.degree = 3
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        op, block, _ = stokes.build_stokes(generators.create("hypercube", 3, 2, 0), mg, device=dev)
+        assert op.B.idx.device.type == dev.type and op.keep_v.device.type == dev.type
+        # the record's right-hand side: velocity masked, pressure mean-free
+        b = np.random.default_rng(0).normal(size=3 * op.n_v + op.n_p)
+        b[: 3 * op.n_v] *= op.keep_v.cpu().numpy()
+        b[3 * op.n_v:] -= b[3 * op.n_v:].mean()
+        b = torch.as_tensor(b, device=dev)
+        g = gmres_solve(op.vmult, b, stokes.triangular_preconditioner(op, block).vmult,
+                        m=30, maxiter=200, reltol=1e-8)
+        x_m, it_m, _ = stokes.minres_solve(op.vmult, b, block.vmult, maxiter=500, reltol=1e-8)
+        out.append((g.x.cpu(), g.n_iterations, x_m.cpu(), it_m))
+    (xg, ig, xm, im), (xg_c, ig_c, xm_c, im_c) = out
+    assert ig == ig_c and im == im_c
+    assert float((xg - xg_c).abs().max()) <= 1e-8 * float(xg_c.abs().max())
+    assert float((xm - xm_c).abs().max()) <= 1e-8 * float(xm_c.abs().max())

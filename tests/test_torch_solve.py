@@ -74,10 +74,20 @@ def test_float_levels_under_double_outer_cg():
     assert levels[-1].op.dtype == torch.float32
 
 
+def test_dim2_solves_on_the_gather_engine():
+    """2D multigrid (once ROADMAP item 11's NotImplementedError) runs on the
+    gather engine: the levels are LaplaceOperators and x is global."""
+    prm = params(TParams, 3, 2)
+    prm.dim = 2
+    res, _, levels = tapi.run(prm, "cpu")
+    assert res.converged and res.n_iterations == 4
+    assert isinstance(levels[-1].op, tapi.LaplaceOperator)
+    assert res.x.shape == (levels[-1].dofh.n_dofs,) and res.n_levels == len(levels)
+
+
 @pytest.mark.parametrize(
     "field,value,item",
     [
-        ("dim", 2, "item 11"),
         ("n_shards", 2, "item 13"),
         ("mg_number_type", "bfloat16", "item 6"),
     ],
