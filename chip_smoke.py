@@ -86,6 +86,28 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
         relative residual <= 1e-8; r=5 (859,812 DoFs) the same, best of 3;
      t. the CLI on a 2D JSON config (HMG-global r=8 p=4, ProfilePhases):
         one row with every column, time_cg > 0;
+     u. the n-sinker Stokes model on the hypercube, float64, Chebyshev degree
+        3, coarse amg, triangular FGMRES(30) to 1e-8: r=2 card against CPU
+        (mean/mass at contrast 1e2, galerkin/wbfbt at 1e4; equal counts, x to
+        1e-8 and 1e-6) and every tensor reachable from the operator and the
+        preconditioner on the card; galerkin/wbfbt at r=3 with the record's
+        right-hand side (the second draw of default_rng(0)): 28 iterations at
+        contrast 1e4 and 39-43 at 1e6 (results/stokes-nsinker-tpu.txt:10-11;
+        43 on the TPU, 39-41 in the JAX package on the CPU under 1e-15
+        changes of b), true relative residual <= 1e-8, and at 1e6 the counts
+        of 8 such changes, each converged to 1e-8; r=5 (859,812 DoFs) at
+        1e6, warm-up and best of 3, one count in all solves, with the host
+        set-up split;
+     v. the convection demo: r=2, 3 steps card against CPU (equal counts, T
+        to 1e-10); r=4 (112,724 DoFs) 5 steps at constant viscosity and 3
+        under eta = 10 exp(-3 T): every step converged, T in [0, 1] to
+        1e-10, wT rising; per-step seconds of the solve and the rebuild;
+        u and v run on the gather engine and ELL products: no stencil launch;
+     w. debug mode (MGTPU_DEBUG=1): HMG-global r=3 p=4 and HMG-local r=3 p=2
+        in double take the counts and x of the plain solves, with the
+        expected stencil launches; one NaN in a smoother's diagonal raises
+        FloatingPointError naming the phase 'pre' (the only error caught);
+        the variable is restored afterwards;
   5. for every patch level of the b, d, f, h, i and k hierarchies (h and i
      through ``result.mg`` and ``result.ls_mg``): the kernel on the level's
      own KS, MS and pscale against the plain version, its time, launches
@@ -672,13 +694,53 @@ def phase_r(dev, card: str, n_ref: int, done: set) -> dict:
     return out
 
 
-def stokes_rhs(op) -> torch.Tensor:
-    """The record's right-hand side: NumPy default_rng(0) normals, velocity
-    masked by keep_v, pressure mean-free (scripts/profile_stokes_tpu.py)."""
-    b = np.random.default_rng(0).normal(size=3 * op.n_v + op.n_p)
+def stokes_rhs(op, draw: int = 0, perturbation: int = 0) -> torch.Tensor:
+    """The record's right-hand side: the ``draw``-th vector of NumPy
+    default_rng(0) normals (0-based; scripts/profile_stokes_tpu.py draws the
+    constant-viscosity b first and the n-sinker b second, both of this
+    size), velocity masked by keep_v, pressure mean-free.  ``perturbation``
+    k > 0 multiplies it by (1 + 1e-15 z), z the k-th standard normal vector
+    of default_rng(99): a change at the level of roundoff."""
+    n = 3 * op.n_v + op.n_p
+    rng = np.random.default_rng(0)
+    for _ in range(draw):
+        rng.normal(size=n)
+    b = rng.normal(size=n)
     b[: 3 * op.n_v] *= op.keep_v.cpu().numpy()
     b[3 * op.n_v:] -= b[3 * op.n_v:].mean()
+    if perturbation:
+        noise = np.random.default_rng(99)
+        for _ in range(perturbation):
+            z = noise.standard_normal(n)
+        b *= 1.0 + 1e-15 * z
     return torch.as_tensor(b, dtype=op.dtype, device=op.keep_v.device)
+
+
+def stokes_mg():
+    """The Stokes records' multigrid data: Chebyshev degree 3, coarse amg."""
+    from dealii_multigrid_tpu_torch.utils.params import MultigridParameters
+
+    mg = MultigridParameters()
+    mg.smoother.degree = 3
+    mg.coarse_solver.type = "amg"
+    return mg
+
+
+def timed_fgmres(op, tri, b, reps: int, maxiter: int):
+    """A warm-up FGMRES(30) to 1e-8 and ``reps`` timed ones, each fenced;
+    (last result, seconds of the timed solves, counts of all solves)."""
+    from dealii_multigrid_tpu_torch.solvers.gmres import gmres_solve
+
+    g = gmres_solve(op.vmult, b, tri.vmult, m=30, maxiter=maxiter, reltol=1e-8)
+    times, its = [], [g.n_iterations]
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = gmres_solve(op.vmult, b, tri.vmult, m=30, maxiter=maxiter, reltol=1e-8)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        its.append(g.n_iterations)
+    return g, times, its
 
 
 def phase_s(dev, card: str) -> None:
@@ -688,11 +750,8 @@ def phase_s(dev, card: str) -> None:
     from dealii_multigrid_tpu_torch.mesh import generators
     from dealii_multigrid_tpu_torch.models import stokes
     from dealii_multigrid_tpu_torch.solvers.gmres import gmres_solve, verify_true_residual
-    from dealii_multigrid_tpu_torch.utils.params import MultigridParameters
 
-    mg = MultigridParameters()
-    mg.smoother.degree = 3
-    mg.coarse_solver.type = "amg"
+    mg = stokes_mg()
     sols = []
     for where in (dev, "cpu"):
         op, block, _ = stokes.build_stokes(generators.create("hypercube", 3, 2, 0), mg,
@@ -716,15 +775,8 @@ def phase_s(dev, card: str) -> None:
         b = stokes_rhs(op)
         torch.cuda.synchronize()
         setup = time.perf_counter() - t0
-        gmres_solve(op.vmult, b, tri.vmult, m=30, maxiter=200, reltol=1e-8)  # warm-up
-        times, its = [], []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            g = gmres_solve(op.vmult, b, tri.vmult, m=30, maxiter=200, reltol=1e-8)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            its.append(g.n_iterations)
+        g, times, its = timed_fgmres(op, tri, b, reps, 200)
+        its = its[1:]
         n = 3 * op.n_v + op.n_p
         true = verify_true_residual(op, b, g.x, g.residual_norm, 1e-8)
         rel_true = true / float(torch.linalg.norm(b))
@@ -783,6 +835,244 @@ def check_phase_row(row: dict, name: str, card: str) -> None:
           f"sum {phase_sum:.6f} s, time_cg {time_cg:.6f} s, phase sum / instrumented iteration "
           f"{ratio:.4f}; card {card}", flush=True)
     check(time_cg > 0, f"CLI row {name}: time_cg {time_cg}")
+
+
+# ---------------------------------------------------------------------------
+# phases u-w (the n-sinker model, the convection demo, debug mode)
+# ---------------------------------------------------------------------------
+
+#: (least, most) FGMRES(30) iterations of the record's n-sinker rows at r=3
+#: (results/stokes-nsinker-tpu.txt:10-11: 28 and 43 on the TPU).  The inner
+#: Kp CG makes the preconditioner mildly nonlinear, so roundoff moves the
+#: 1e6 count: from the record's b and 64 changes of it by 1e-15 relative the
+#: JAX package takes 39-41 on the CPU (39 on 3 of the 65; 40 from the
+#: record's b) and the port 39-41 on the CPU (tests/test_torch_nsinker.py,
+#: ``nsinker_spread``); phase u prints the card's counts under 8 of them
+NSINKER_R3_ITERATIONS = {1e4: (28, 28), 1e6: (39, 43)}
+
+
+def tensors_of(*objs) -> list:
+    """Every tensor reachable from ``objs`` through dataclass fields, object
+    attributes, tuples, lists and dicts."""
+    import types
+
+    seen, out, stack = set(), [], list(objs)
+    while stack:
+        o = stack.pop()
+        if o is None or id(o) in seen:
+            continue
+        seen.add(id(o))
+        if isinstance(o, torch.Tensor):
+            out.append(o)
+        elif isinstance(o, (list, tuple)):
+            stack.extend(o)
+        elif isinstance(o, dict):
+            stack.extend(o.values())
+        elif dataclasses.is_dataclass(o):
+            stack.extend(getattr(o, f.name) for f in dataclasses.fields(o))
+        elif hasattr(o, "__dict__") and not isinstance(
+                o, (type, types.ModuleType, types.FunctionType, types.MethodType)):
+            stack.extend(vars(o).values())
+    return out
+
+
+def nsinker_row(r: int, contrast: float, reps: int, dev, card: str, perturbations: int = 0) -> int:
+    """Galerkin/w-BFBT n-sinker at refinement r with the record's protocol
+    (n_sinkers 4, seed 0, the second draw of default_rng(0), FGMRES(30) to
+    1e-8, maxiter 300): a warm-up and ``reps`` timed solves, then one solve
+    from each of ``perturbations`` changes of b at the level of roundoff
+    (``stokes_rhs``), whose counts show how far roundoff moves the count.
+    Returns the record's iteration count; fails unless every solve
+    converged with a true relative residual <= 1e-8 and the timed solves
+    took one count."""
+    from dealii_multigrid_tpu_torch.mesh import generators
+    from dealii_multigrid_tpu_torch.models import nsinker, stokes
+    from dealii_multigrid_tpu_torch.solvers.gmres import gmres_solve, verify_true_residual
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    op, block, aux = nsinker.build_stokes_nsinker(
+        generators.create("hypercube", 3, r, 0), stokes_mg(),
+        nsinker.nsinker_viscosity(n_sinkers=4, eta_max=contrast, seed=0),
+        coarsening="galerkin", schur="wbfbt", device=dev,
+    )
+    tri = stokes.triangular_preconditioner(op, block)
+    b = stokes_rhs(op, draw=1)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    g, times, its = timed_fgmres(op, tri, b, reps, 300)
+    rel_true = verify_true_residual(op, b, g.x, g.residual_norm, 1e-8) / float(torch.linalg.norm(b))
+    n = 3 * op.n_v + op.n_p
+    best = min(times)
+    split = {k: round(v, 3) for k, v in aux["setup_seconds"].items()}
+    amg = block.p_solve.kp_solve.amg
+    print(f"phase u: n-sinker r={r} contrast {contrast:g} galerkin/wbfbt FGMRES(30) float64: n_dofs {n} "
+          f"({3 * op.n_v} velocity + {op.n_p} pressure), velocity levels {len(block.v_precond.mg.operators)}, "
+          f"Kp AMG rows {[d['rows'] for d in amg.describe()]}, iterations {its} (warm-up first), "
+          f"converged {g.converged}, true relative residual {rel_true:.3e}, solve {best:.6f} s "
+          f"(reps {[round(t, 6) for t in times]}), {n * its[-1] / best / 1e6:.3f} MDoF/s, "
+          f"setup {setup:.1f} s (host split {split}), peak mem "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card}", flush=True)
+    check(g.converged and rel_true <= 1e-8 and len(set(its)) == 1,
+          f"n-sinker r={r} contrast {contrast:g}: converged {g.converged}, true relative residual "
+          f"{rel_true:.3e}, iterations {its}")
+    check(bool(torch.isfinite(g.x).all()) and g.x.is_cuda, f"n-sinker r={r}: x not finite on the card")
+    if perturbations:
+        spread = []
+        for k in range(1, perturbations + 1):
+            bk = stokes_rhs(op, draw=1, perturbation=k)
+            gk = gmres_solve(op.vmult, bk, tri.vmult, m=30, maxiter=300, reltol=1e-8)
+            rel_k = verify_true_residual(op, bk, gk.x, gk.residual_norm, 1e-8) / float(torch.linalg.norm(bk))
+            check(gk.converged and rel_k <= 1e-8,
+                  f"n-sinker r={r} contrast {contrast:g} perturbation {k}: converged {gk.converged}, "
+                  f"true relative residual {rel_k:.3e}")
+            spread.append(gk.n_iterations)
+        print(f"phase u: n-sinker r={r} contrast {contrast:g}: counts under {perturbations} changes of b "
+              f"by 1e-15 relative {spread} (the record's b: {its[0]})", flush=True)
+    del op, block, aux, tri, b, g
+    return its[0]
+
+
+def phase_u(dev, card: str) -> None:
+    """The n-sinker model: r=2 card against CPU and the device placement;
+    r=3 with the record's right-hand side; r=5 at contrast 1e6."""
+    from dealii_multigrid_tpu_torch.mesh import generators
+    from dealii_multigrid_tpu_torch.models import nsinker, stokes
+    from dealii_multigrid_tpu_torch.solvers.gmres import gmres_solve
+
+    mg = stokes_mg()
+    for coarsening, schur, contrast, seed, tol in (
+        ("mean", "mass", 1e2, 1, 1e-8), ("galerkin", "wbfbt", 1e4, 0, 1e-6),
+    ):
+        sols = []
+        for where in (dev, "cpu"):
+            op, block, _ = nsinker.build_stokes_nsinker(
+                generators.create("hypercube", 3, 2, 0), mg,
+                nsinker.nsinker_viscosity(n_sinkers=4, eta_max=contrast, seed=seed),
+                coarsening=coarsening, schur=schur, device=where,
+            )
+            b = stokes_rhs(op)
+            g = gmres_solve(op.vmult, b, stokes.triangular_preconditioner(op, block).vmult,
+                            m=30, maxiter=300, reltol=1e-8)
+            sols.append((g, op, block))
+        (g, op, block), (g_c, _, _) = sols
+        rel = max_rel(g.x, g_c.x)
+        placed = tensors_of(op, block)
+        off = [tuple(t.shape) for t in placed if not t.is_cuda]
+        mib = sum(t.numel() * t.element_size() for t in placed) / 2**20
+        print(f"phase u: n-sinker r=2 {coarsening}/{schur} contrast {contrast:g}: FGMRES(30) card "
+              f"{g.n_iterations} / cpu {g_c.n_iterations} it, x {rel:.3e} (limit {tol:g}); "
+              f"{len(placed)} tensors reachable from the operator and preconditioner "
+              f"({mib:.2f} MiB), not on the card: {off}", flush=True)
+        check(g.converged and g_c.converged and g.n_iterations == g_c.n_iterations and rel <= tol
+              and g.x.is_cuda, f"n-sinker r=2 {coarsening}/{schur}: card disagrees with the CPU")
+        check(not off and len(placed) >= 20, f"n-sinker r=2 {coarsening}/{schur}: tensors off the card {off}")
+    for contrast, (lo, hi) in NSINKER_R3_ITERATIONS.items():
+        its = nsinker_row(3, contrast, 1, dev, card, perturbations=8 if contrast == 1e6 else 0)
+        check(lo <= its <= hi, f"n-sinker r=3 contrast {contrast:g}: {its} iterations, record {lo}-{hi}")
+    nsinker_row(5, 1e6, 3, dev, card)
+
+
+def phase_v(dev, card: str) -> None:
+    """The convection demo: r=2 card against CPU; r=4 at constant viscosity
+    and under eta = 10 exp(-3 T)."""
+    from dealii_multigrid_tpu_torch.mantle_convection import demo
+
+    (_, T, hist), (_, T_c, hist_c) = (demo.run_demo(r=2, n_steps=3, device=d) for d in (dev, "cpu"))
+    its, its_c = [h["iterations"] for h in hist], [h["iterations"] for h in hist_c]
+    diff = float((T.cpu() - T_c).abs().max())
+    print(f"phase v: convection r=2, 3 steps: card {its} / cpu {its_c} FGMRES(60) iterations, "
+          f"max |T_card - T_cpu| {diff:.3e} (limit 1e-10)", flush=True)
+    check(its == its_c and diff <= 1e-10 and T.is_cuda and all(h["converged"] for h in hist),
+          "convection r=2: card disagrees with the CPU")
+    for label, eta_of_T, n_steps in (
+        ("constant viscosity", None, 5),
+        ("eta = 10 exp(-3 T)", lambda t: 10.0 * np.exp(-3.0 * t), 3),
+    ):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        d = demo.build_convection_demo(4, eta_of_T=eta_of_T, device=dev)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        T, hist = d.run(d.T, n_steps)
+        n = 3 * d.n_v + d.n_p
+        for i, h in enumerate(hist):
+            print(f"phase v: convection r=4 {label} step {i}: iterations {h['iterations']}, converged "
+                  f"{h['converged']}, Stokes solve {h['solve_seconds']:.4f} s, rebuild "
+                  f"{h['rebuild_seconds']:.4f} s, umax {h['umax']:.6e}, dt {h['dt']:.6e}, "
+                  f"T in [{h['T_min']:.3e}, {h['T_max']:.12f}], wT {h['wT']:.6e}", flush=True)
+        print(f"phase v: convection r=4 {label}: n_dofs {n} ({3 * d.n_v} velocity + {d.n_p} pressure), "
+              f"setup {setup:.1f} s, peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"card {card}", flush=True)
+        check(n == 112_724, f"convection r=4: {n} DoFs")
+        check(all(h["converged"] for h in hist), f"convection r=4 {label}: a step did not converge")
+        check(all(-1e-10 <= h["T_min"] and h["T_max"] <= 1 + 1e-10 for h in hist),
+              f"convection r=4 {label}: T left [0, 1]")
+        check(hist[-1]["wT"] > hist[0]["wT"], f"convection r=4 {label}: wT did not rise")
+        check(T.is_cuda and bool(torch.isfinite(T).all()), f"convection r=4 {label}: T not finite on the card")
+        del d, T
+
+
+def nan_in_diagonal(smoothers: tuple) -> tuple:
+    """The smoothers with one NaN in the diagonal of the one below the finest."""
+    sm = smoothers[-2]
+    inv_diag = sm.inv_diag.clone()
+    inv_diag[0] = float("nan")
+    return smoothers[:-2] + (dataclasses.replace(sm, inv_diag=inv_diag), smoothers[-1])
+
+
+def phase_w(dev, card: str, paths: dict) -> None:
+    """Debug mode on the card: small HMG-global and HMG-local solves equal
+    to the plain ones, and a NaN inside a V-cycle raises naming its phase."""
+    from dealii_multigrid_tpu_torch import api
+    from dealii_multigrid_tpu_torch.solvers.multigrid import PreconditionMG
+
+    saved = os.environ.pop("MGTPU_DEBUG", None)
+    try:
+        for key, prm in (
+            ("debug_hmg_global_r3", bench_params(3, 4, "double", 1)),
+            ("debug_hmg_local_r3", bench_params(3, 2, "double", 1, "HMG-local")),
+        ):
+            os.environ.pop("MGTPU_DEBUG", None)
+            plain, _, _ = api.run(prm, dev)
+            os.environ["MGTPU_DEBUG"] = "1"
+            (res, _problem, levels), launches = counted(lambda: api.run(prm, dev))
+            paths[key] = launches
+            if prm.type == "HMG-global":
+                entries = gc_entries(levels, prm)
+            else:
+                entries = ls_entries(res, levels[0], torch.float64, prm)
+            check_solve(f"debug {prm.type}", res, entries, launches)
+            rel = max_rel(res.x, plain.x)
+            print(f"phase w: MGTPU_DEBUG=1 {prm.type} r=3 p={prm.fe_degree_fine} double: iterations "
+                  f"{res.solve_iterations} (plain {plain.solve_iterations}), x vs plain {rel:.3e}, "
+                  f"stencil launches {launches}; card {card}", flush=True)
+            check(res.solve_iterations == plain.solve_iterations and rel <= 1e-12,
+                  f"debug {prm.type}: the solve differs from the plain one")
+            fine = levels[-1]
+            if prm.type == "HMG-global":
+                mg = dataclasses.replace(res.mg, smoothers=nan_in_diagonal(res.mg.smoothers))
+                precond = PreconditionMG(mg, torch.float64)
+            else:
+                ls = dataclasses.replace(res.ls_mg, smoothers=nan_in_diagonal(res.ls_mg.smoothers))
+                precond = api.PreconditionLS(ls, fine.op.constrained_keep, torch.float64)
+            try:
+                api.mg_solve(fine.op, res.rhs_used, precond, prm.mg_data, n_levels=res.n_levels,
+                             n_dofs=res.n_dofs)
+            except FloatingPointError as exc:  # the expected error: the check
+                print(f"phase w: {prm.type} with one NaN in a smoother diagonal raises "
+                      f"FloatingPointError: {exc}", flush=True)
+                check("'pre'" in str(exc), f"debug {prm.type}: the error names another phase: {exc}")
+            else:
+                check(False, f"debug {prm.type}: a NaN inside the V-cycle raised nothing")
+            del res, _problem, levels, fine, precond, plain
+    finally:
+        if saved is None:
+            os.environ.pop("MGTPU_DEBUG", None)
+        else:
+            os.environ["MGTPU_DEBUG"] = saved
 
 
 def new_phases(dev, card: str, done: set, n_ref_2d: int) -> dict:
@@ -1183,6 +1473,13 @@ def main() -> int:
     its_2d = new_phases(dev, card, done, 10)
     print(f"2D r=10 iterations {its_2d}", flush=True)
     check(done == set(P_SITES), f"phase p covered {sorted(done)}, not {P_SITES}")
+
+    # 4u-4w. the n-sinker model and the convection demo (no stencil), debug mode
+    for key, phase in (("nsinker", phase_u), ("convection", phase_v)):
+        _, launches = counted(lambda: phase(dev, card))
+        paths[key] = launches
+        check(launches == 0, f"phase {key} launched the stencil {launches} times")
+    phase_w(dev, card, paths)
 
     # result lines
     print(json.dumps({"kernels": [{

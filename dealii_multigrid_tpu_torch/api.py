@@ -30,7 +30,13 @@ from .mesh.dof import Constraints, DoFHandler, distribute_dofs, make_hanging_nod
 from .mesh.octree import AdaptiveMesh
 from .models import poisson
 from .ops.hybrid import HybridOperator, make_hybrid_operator
-from .ops.hybrid_format import HybridFormat, build_hybrid_format, cell_slot_table
+from .ops.hybrid_format import (
+    HybridFormat,
+    build_hybrid_format,
+    cell_slot_table,
+    sanitizer_enabled,
+    verify_format,
+)
 from .ops.hybrid_transfer import make_hybrid_transfer
 from .ops.operator import LaplaceOperator, compute_diagonal, make_operator
 from .ops.transfer import make_two_level_transfer
@@ -51,7 +57,7 @@ from .solvers.local_smoothing import (
 from .solvers.multigrid import Multigrid, PreconditionMG
 from .utils.device import resolve_device
 from .utils.params import MultigridParameters, RunParameters
-from .utils.phases import PhaseRecorder, instrument
+from .utils.phases import PhaseRecorder, checked, instrument
 
 _DTYPES = {
     "float": torch.float32,
@@ -224,6 +230,8 @@ def build_level_hybrid(
     dofh = distribute_dofs(mesh, degree)
     hanging = make_hanging_node_constraints(dofh)
     fmt = build_hybrid_format(dofh, K=K)
+    if sanitizer_enabled():
+        verify_format(fmt)
     op = make_hybrid_operator(fmt, hanging, device, dtype)
     diag = compute_diagonal(dofh, hanging)
 
@@ -365,7 +373,9 @@ def mg_solve(
     ``profile_phases`` one more solve runs with the preconditioner's phase
     hooks timing every phase of its V-cycles (utils/phases.py); its
     per-iteration phase and iteration times land in ``phases`` and
-    ``phase_iteration_time``, and the timed solves stay uninstrumented.
+    ``phase_iteration_time``, and the timed solves stay uninstrumented.  In
+    debug mode (``MGTPU_DEBUG``) every solve checks each phase's output for
+    non-finite values (``solvers.multigrid.finite_check``).
 
     ``fine_op`` is a HybridOperator, a MixedPrecisionOperator or (AMG,
     AMGPETSc) a gather-engine LaplaceOperator, whose dot is the plain one;
@@ -373,6 +383,7 @@ def mg_solve(
     right-hand side selects the df32 CG: the operator and
     preconditioner apply in plain float32, and x rounds to float32 on the
     way out."""
+    preconditioner = checked(preconditioner)  # debug mode: every V-cycle phase (AMG: its output) checked
     ctrl = mg_data.cg_parameter_study if mg_data.do_parameter_study else mg_data.cg_normal
     force = mg_data.cg_parameter_study.maxiter if mg_data.do_parameter_study else None
     df32 = isinstance(rhs, twofloat.TF)

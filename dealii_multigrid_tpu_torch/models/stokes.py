@@ -38,6 +38,7 @@ from ..solvers.amg import ELLMatrix, _to_ell
 from ..solvers.chebyshev import ChebyshevSmoother
 from ..solvers.multigrid import PreconditionMG
 from ..utils.device import resolve_device
+from ..utils.phases import checked
 
 
 def _mixed_1d_tables(p_v: int, p_p: int):
@@ -322,7 +323,7 @@ def build_stokes(
         n_p=dofh_p.n_dofs,
     )
     precond = StokesBlockPreconditioner(
-        v_precond=PreconditionMG(mg, dtype), p_solve=p_solve,
+        v_precond=checked(PreconditionMG(mg, dtype)), p_solve=checked(p_solve, "schur"),
         n_v=dofh_v.n_dofs, n_p=dofh_p.n_dofs,
     )
     aux = {"dofh_v": dofh_v, "dofh_p": dofh_p, "B": B, "levels": levels}

@@ -12,6 +12,7 @@ moves them onto a torch device.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -546,6 +547,30 @@ def build_hybrid_format(
         cross_faces=cross_faces,
         use_cross=use_cross,
     )
+
+
+def sanitizer_enabled() -> bool:
+    """Debug mode, the JAX package's ``MGTPU_DEBUG`` with its meaning: any
+    value but empty or "0" verifies every hybrid level's slot layout as it
+    is built (``verify_format``) and checks the output of every V-cycle
+    phase, and of every preconditioner without such phases (AMG, AMGPETSc,
+    the Stokes Schur solves), for non-finite values
+    (``solvers.multigrid.finite_check``)."""
+    return os.environ.get("MGTPU_DEBUG", "") not in ("", "0")
+
+
+def verify_format(fmt: HybridFormat) -> None:
+    """Slot-layout invariants: every real DoF owned by exactly one slot,
+    ``rep_slot`` round-trips, dummy slots carry the sentinel DoF id.
+    Raises AssertionError naming the broken invariant."""
+    n_dofs = fmt.dofh.n_dofs
+    counts = np.bincount(fmt.slot_dof[fmt.owner > 0], minlength=n_dofs + 1)
+    if not (counts[:n_dofs] == 1).all():
+        raise AssertionError("owner mask broken")
+    if not (fmt.slot_dof[fmt.rep_slot] == np.arange(n_dofs)).all():
+        raise AssertionError("rep_slot does not round-trip")
+    if not (fmt.slot_dof <= n_dofs).all():
+        raise AssertionError("slot dof id out of range")
 
 
 def slots_of(fmt: HybridFormat, dofs: np.ndarray):

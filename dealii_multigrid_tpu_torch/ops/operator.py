@@ -142,12 +142,17 @@ def make_operator(
     hanging: Constraints,
     device: torch.device,
     dtype: torch.dtype = torch.float32,
+    cell_weights: np.ndarray | None = None,
 ) -> LaplaceOperator:
-    """The gather-engine operator of one DoFHandler on ``device``."""
+    """The gather-engine operator of one DoFHandler on ``device``.
+    ``cell_weights`` multiplies each cell's contribution: exact for a
+    cellwise-constant coefficient (the viscosity of models/nsinker.py)."""
     mesh = dofh.mesh
     dim, p = dofh.dim, dofh.degree
     hang, dirichlet = split_boundary_constraints(dofh, hanging)
     scale = mesh.h(mesh.level).astype(np.float64) ** (dim - 2)
+    if cell_weights is not None:
+        scale = scale * np.asarray(cell_weights, np.float64)
     constrained = np.unique(np.concatenate([dirichlet, hang.slave]))
     K = max(hang.masters.shape[1], 1)
 

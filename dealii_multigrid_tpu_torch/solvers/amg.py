@@ -27,6 +27,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..utils.device import resolve_device
+
 
 @dataclass(frozen=True)
 class ELLMatrix:
@@ -256,7 +258,7 @@ def _lam_max_dinv_a(A: sp.csr_matrix, d: np.ndarray, iters: int = 12) -> float:
 def build_amg(
     A: sp.csr_matrix,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
     theta: float = 0.02,
     omega: float = 2.0 / 3.0,
     coarse_size: int = 800,
@@ -266,10 +268,12 @@ def build_amg(
     n_smooth: int = 2,
     strength: str = "scaled",
 ) -> AMGPreconditioner:
-    """``aggressive_levels``: on the first k coarsening steps, aggregate the
-    aggregate graph a second time (HYPRE's aggressive coarsening analog —
-    coarsens ~2x faster per level at the cost of extra iterations)."""
-    device = torch.device(device)
+    """The hierarchy of ``A`` on ``device`` (None: the card; a CPU build
+    passes ``"cpu"``).  ``aggressive_levels``: on the first k coarsening
+    steps, aggregate the aggregate graph a second time (HYPRE's aggressive
+    coarsening analog — coarsens ~2x faster per level at the cost of extra
+    iterations)."""
+    device = resolve_device(device)
     t_start = time.perf_counter()
     host_levels = []          # (A, P or None, 1/diag, omega), finest first
     A = A.tocsr()
@@ -373,7 +377,7 @@ def build_amg(
 
 def build_amg_boomer(
     A: sp.csr_matrix, dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu", n_cycles: int = 1, **kw,
+    device: torch.device | str | None = None, n_cycles: int = 1, **kw,
 ) -> AMGPreconditioner:
     """The second, distinctly-parameterized algebraic flavour ("AMGPETSc"):
     mirrors the reference's BoomerAMG configuration (strong threshold 0.5,

@@ -41,7 +41,13 @@ from ..mesh.octree import AdaptiveMesh, morton_encode
 from ..ops import element, tensor
 from ..ops.fixed_order import FixedOrderSum
 from ..ops.hybrid import HybridOperator, make_hybrid_operator
-from ..ops.hybrid_format import HybridFormat, build_hybrid_format, slots_of
+from ..ops.hybrid_format import (
+    HybridFormat,
+    build_hybrid_format,
+    sanitizer_enabled,
+    slots_of,
+    verify_format,
+)
 from ..ops.hybrid_transfer import make_hybrid_transfer
 from .chebyshev import ChebyshevSmoother, estimate_eigenvalue_ranges
 from .coarse import make_algebraic_solver
@@ -156,6 +162,8 @@ def ls_level_host(
     # (operator.h:152-183): fold the edge set into the Dirichlet mask
     dofh.boundary_mask = dofh.boundary_mask | edge
     fmt = build_hybrid_format(dofh, K=K)
+    if sanitizer_enabled():
+        verify_format(fmt)
 
     # copy maps: active cells at level l <-> level-mesh cells; the tables
     # list ALL slots of each copied dof (slots_of), so both directions write

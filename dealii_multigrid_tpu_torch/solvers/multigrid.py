@@ -9,7 +9,8 @@ Every phase runs through the object's ``hook`` (``hook(phase, fn, *args)``
 returns ``fn(*args)``), the analog of the reference's Multigrid signals
 (multigrid_throughput.cc:1152-1234).  The default hook only calls; the
 profiled solve of ``ProfilePhases`` runs a copy whose hook times each phase
-(utils/phases.py), so the timed solves carry no event and no branch.
+(utils/phases.py), and debug mode (``MGTPU_DEBUG``) a copy whose hook is
+``finite_check``, so the timed solves carry no event, no check and no branch.
 """
 
 from __future__ import annotations
@@ -23,6 +24,20 @@ import torch
 def untimed(phase: str, fn: Callable, *args):
     """The default phase hook: apply the phase, time nothing."""
     return fn(*args)
+
+
+def finite_check(phase: str, fn: Callable, *args):
+    """The debug-mode phase hook: apply the phase (a V-cycle phase, or a
+    whole preconditioner without such phases), then raise FloatingPointError
+    naming it if its output holds a NaN or an infinity (torch has no
+    ``jax_debug_nans``).  One host synchronisation per phase."""
+    out = fn(*args)
+    parts = out if isinstance(out, (list, tuple)) else (out,)
+    if not all(bool(torch.isfinite(t).all()) for t in parts):
+        raise FloatingPointError(
+            f"debug mode (MGTPU_DEBUG): non-finite value in the output of the phase {phase!r}"
+        )
+    return out
 
 
 def residual(op, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

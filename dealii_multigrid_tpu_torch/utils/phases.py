@@ -22,6 +22,11 @@ Two measurements live here:
     of ``n_loop`` applications); the CLI's verbose per-level table.
     ``profile_preconditioner`` sums it over the levels.
 
+``checked`` uses the same hook mechanism for debug mode: with
+``MGTPU_DEBUG`` set it returns a copy of a preconditioner whose phases run
+through ``solvers.multigrid.finite_check``, or, for one without V-cycle
+phases, a ``FiniteChecked`` wrapper that checks its whole output.
+
 Both handle the global-coarsening Multigrid and both local-smoothing
 hierarchies; for the latter ``edge_pro`` times the refinement-edge
 interface operators (include/operator.h:191-226) and to_mg / to_global the
@@ -41,7 +46,8 @@ import numpy as np
 import torch
 
 from ..ops.hybrid import HybridOperator
-from ..solvers.multigrid import PreconditionMG
+from ..ops.hybrid_format import sanitizer_enabled
+from ..solvers.multigrid import PreconditionMG, finite_check
 
 PHASES = ("pre", "residuum", "res", "cs", "pro", "edge_pro", "post")
 KEYS = PHASES + ("to_mg", "to_global")
@@ -99,6 +105,35 @@ def instrument(precond, hook):
     if hasattr(precond, "copy_to_mg"):  # a bare local-smoothing hierarchy
         return dataclasses.replace(precond, hook=hook)
     return None
+
+
+@dataclasses.dataclass(frozen=True)
+class FiniteChecked:
+    """Debug mode's check of a preconditioner without V-cycle phases (AMG,
+    AMGPETSc, a Schur solve, the w-BFBT Kp solve): its whole application
+    runs through ``finite_check`` as one phase named ``phase``, and its
+    input is checked too, since a CG inside (the Kp solve's) stops at a
+    non-finite residual and returns zeros, which would hide the NaN."""
+
+    inner: object
+    phase: str
+
+    def vmult(self, b: torch.Tensor) -> torch.Tensor:
+        if not bool(torch.isfinite(b).all()):
+            raise FloatingPointError(
+                f"debug mode (MGTPU_DEBUG): non-finite value in the input of the phase {self.phase!r}"
+            )
+        return finite_check(self.phase, self.inner.vmult, b)
+
+
+def checked(precond, phase: str = "amg"):
+    """``precond`` itself, or in debug mode (``MGTPU_DEBUG``) a copy whose
+    V-cycle phases run through ``solvers.multigrid.finite_check``; a
+    preconditioner without such phases is checked as a whole, under the
+    name ``phase``."""
+    if not sanitizer_enabled():
+        return precond
+    return instrument(precond, finite_check) or FiniteChecked(precond, phase)
 
 
 # ---------------------------------------------------------------------------

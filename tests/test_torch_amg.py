@@ -140,7 +140,7 @@ def test_rmatvec_needs_the_transposed_table():
 
 
 def test_float32_levels_keep_their_dtype():
-    t = tamg.build_amg(lap2d(24), dtype=torch.float32, coarse_size=100)
+    t = tamg.build_amg(lap2d(24), dtype=torch.float32, device="cpu", coarse_size=100)
     assert t.chol.dtype == torch.float32
     assert all(lv.A.vals.dtype == torch.float32 for lv in t.levels)
     y = t.vmult(torch.ones(24 * 24))
@@ -168,7 +168,7 @@ def test_clamp_restores_smoother_convergence():
     convergent regime while the unclamped weight provably diverges."""
     A = lap2d(16)
     evs = scaled_eigs(A)
-    pre = tamg.build_amg(A, dtype=torch.float64, omega=1.5, coarse_size=40)
+    pre = tamg.build_amg(A, dtype=torch.float64, device="cpu", omega=1.5, coarse_size=40)
     om0 = pre.levels[0].omega
     assert om0 < 1.5, "clamp did not activate on the fine level"
     assert om0 * evs.max() < 2.0 * 1.01  # the spectral safety rule
@@ -187,5 +187,6 @@ def test_clamp_restores_smoother_convergence():
 def test_clamp_inactive_for_safe_nominal_weight():
     """The ML-analog default (2/3) is already safe on the Laplacian: the
     clamp must leave it untouched."""
-    pre = tamg.build_amg(lap2d(16), dtype=torch.float64, omega=2.0 / 3.0, coarse_size=40)
+    pre = tamg.build_amg(lap2d(16), dtype=torch.float64, device="cpu", omega=2.0 / 3.0,
+                         coarse_size=40)
     assert pre.levels[0].omega == 2.0 / 3.0

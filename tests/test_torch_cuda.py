@@ -336,3 +336,41 @@ def test_stokes_on_card_matches_cpu(cuda):
     assert ig == ig_c and im == im_c
     assert float((xg - xg_c).abs().max()) <= 1e-8 * float(xg_c.abs().max())
     assert float((xm - xm_c).abs().max()) <= 1e-8 * float(xm_c.abs().max())
+
+
+@pytest.mark.parametrize("coarsening,schur,contrast,seed,tol", [
+    ("mean", "mass", 1e2, 1, 1e-8), ("galerkin", "wbfbt", 1e4, 0, 1e-6)])
+def test_nsinker_on_card_matches_cpu(cuda, coarsening, schur, contrast, seed, tol):
+    from dealii_multigrid_tpu_torch.mesh import generators
+    from dealii_multigrid_tpu_torch.models import nsinker, stokes
+    from dealii_multigrid_tpu_torch.solvers.gmres import gmres_solve
+    from dealii_multigrid_tpu_torch.utils.params import MultigridParameters
+
+    mg = MultigridParameters()
+    mg.smoother.degree = 3
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        op, block, _ = nsinker.build_stokes_nsinker(
+            generators.create("hypercube", 3, 2, 0), mg,
+            nsinker.nsinker_viscosity(n_sinkers=4, eta_max=contrast, seed=seed),
+            coarsening=coarsening, schur=schur, device=dev)
+        assert op.B.idx.device.type == dev.type and op.a_op.scalar.scale.device.type == dev.type
+        b = np.random.default_rng(1).normal(size=3 * op.n_v + op.n_p)
+        b[: 3 * op.n_v] *= op.keep_v.cpu().numpy()
+        b[3 * op.n_v:] -= b[3 * op.n_v:].mean()
+        g = gmres_solve(op.vmult, torch.as_tensor(b, device=dev),
+                        stokes.triangular_preconditioner(op, block).vmult, m=30, maxiter=150, reltol=1e-8)
+        assert g.converged
+        out.append((g.x.cpu(), g.n_iterations))
+    (x, it), (x_c, it_c) = out
+    assert it == it_c
+    assert float((x - x_c).abs().max()) <= tol * float(x_c.abs().max())
+
+
+def test_convection_step_on_card_matches_cpu(cuda):
+    from dealii_multigrid_tpu_torch.mantle_convection import demo
+
+    (_, T, hist), (_, T_c, hist_c) = (demo.run_demo(r=2, n_steps=2, device=d) for d in (cuda, "cpu"))
+    assert T.is_cuda
+    assert [h["iterations"] for h in hist] == [h["iterations"] for h in hist_c]
+    assert float((T.cpu() - T_c).abs().max()) <= 1e-10

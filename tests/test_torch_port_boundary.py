@@ -66,3 +66,34 @@ def test_chip_smoke_refuses_to_run_without_card():
     )
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _lap1d(n: int = 50):
+    import scipy.sparse as sp
+
+    return sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], (n, n)).tocsr()
+
+
+@pytest.mark.parametrize("builder", ["build_amg", "build_stokes_nsinker", "make_stokes_rebuilder",
+                                     "build_convection_demo"])
+def test_builders_without_device_need_the_card(builder):
+    """No device means the card: without one the builder raises, and it
+    never builds on the host behind the caller's back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from dealii_multigrid_tpu_torch.mantle_convection import demo
+    from dealii_multigrid_tpu_torch.mesh import generators
+    from dealii_multigrid_tpu_torch.models import nsinker
+    from dealii_multigrid_tpu_torch.solvers import amg
+    from dealii_multigrid_tpu_torch.utils.params import MultigridParameters
+
+    mesh = generators.create("hypercube", 3, 1, 0)
+    calls = {
+        "build_amg": lambda: amg.build_amg(_lap1d()),
+        "build_stokes_nsinker": lambda: nsinker.build_stokes_nsinker(
+            mesh, MultigridParameters(), nsinker.nsinker_viscosity()),
+        "make_stokes_rebuilder": lambda: nsinker.make_stokes_rebuilder(mesh, MultigridParameters()),
+        "build_convection_demo": lambda: demo.build_convection_demo(1),
+    }
+    with pytest.raises(RuntimeError, match="does not fall back"):
+        calls[builder]()
