@@ -11,7 +11,8 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      band p at S = 8p + 1; random KS, MS zero outside a band b < 8 at
      S = 33.  Time the kernel (CUDA events) at the six main-path shapes in
      float32 and at (512, 33) in float64, and the plain version at
-     (512, 33) float32, and compute each shape's bound;
+     (512, 33) in both, and compute each shape's bound (phase x adds the
+     bfloat16 instance);
   4. solve, each path through api.run on cuda:0 with the launch count set
      to 0 just before it and read just after:
      a. a small double-precision HMG-global solve on the card against the
@@ -108,11 +109,32 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
         expected stencil launches; one NaN in a smoother's diagonal raises
         FloatingPointError naming the phase 'pre' (the only error caught);
         the variable is restored afterwards;
-  5. for every patch level of the b, d, f, h, i and k hierarchies (h and i
-     through ``result.mg`` and ``result.ls_mg``): the kernel on the level's
+     x. bfloat16 levels (MGNumberType bfloat16): the bfloat16 instance of
+        the kernel at phase 3's shapes, held elementwise to one rounding
+        (2^-8 relative + 1e-5 of the maximum) of a float64 stencil of its
+        own bfloat16 inputs and to 2e-2 of the maximum of the plain
+        bfloat16 version, and timed at the six main-path shapes; card
+        against CPU at r=3 p=4 (HMG-global bfloat16 under float and under
+        double, float under float, HPMG and HMG-local bfloat16 under
+        double): the CPU's plain chain takes the JAX package's counts (4,
+        4, 4, 4, 5) and the card the counts of the port's CPU run whose
+        stencil rounds once, as the kernel does (``one_rounding_stencil``),
+        and of the JAX package so rounded on the CPU (4, 4, 4, 4, 4);
+        HMG-global r=7 p=4 bfloat16 under float and HPMG r=7 p=4 bfloat16
+        under mixed, 5 repetitions each: converged, the guard, one count in
+        all solves, float32 and bfloat16 launches as expected, peak memory,
+        set-up, MDoF/s; phase p's sites (20 runs bit-equal) on their
+        bfloat16 levels;
+     y. the port's experiment runner (tools/run_experiment.py) on the card
+        over small-scaling quadrant up to r=5 (12 rows) against
+        results/small-scaling-quadrant-tpu-merged.txt: every row equal,
+        none failed, the card named in the artifact's header and rows;
+  5. for every patch level of the b, d, f, h, i, k and x hierarchies (h and
+     i through ``result.mg`` and ``result.ls_mg``): the kernel on the level's
      own KS, MS and pscale against the plain version, its time, launches
-     per solve and bound; then the kernels line, the card's name and power
-     limit, and the result line.
+     per solve and bound; then the kernels line (one entry per instance:
+     float32, float64, bfloat16), the card's name and power limit, and the
+     result line.
 
 The expected launch counts come from the same per-level entries
 (``gc_entries``, ``ls_entries``) that step 5 reads.
@@ -139,9 +161,26 @@ F64_REL = 1e-12                        # f64: max|err| / max|ref|
 TIMED_LAUNCHES = 50
 #: (NP, S) of the patch levels L7..L2 of quadrant r=7 p=4, finest first
 MAIN_SHAPES = ((512, 33), (64, 33), (8, 33), (8, 17), (27, 9), (8, 9))
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth, FP32 and FP64 (non-tensor) peaks
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, FP32 and FP64 (non-tensor)
+# peaks, and the bf16 (dense tensor-core) peak: the least time for the same
+# work on bfloat16 inputs (the bfloat16 instance itself computes in FP32 FMA)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12, torch.bfloat16: 989e12}
+#: the bfloat16 instance against a float64 stencil of its own bfloat16
+#: inputs: one rounding to nearest (2^-8 relative) plus float32
+#: accumulation (1e-5 of max|ref64|), elementwise
+BF16_RTOL, BF16_ATOL_REL = 2.0**-8, 1e-5
+#: ... and against the plain bfloat16 tensordot chain: max|err| / max|plain|
+BF16_PLAIN_REL = 2e-2
+DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+
+
+T_START = time.perf_counter()
+
+
+def stamp(phase: str) -> None:
+    """The script's elapsed time where a phase starts (where the time goes)."""
+    print(f"[chip_smoke] phase {phase} starts at {time.perf_counter() - T_START:.1f} s", flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -222,7 +261,7 @@ def check_kernel(dev: torch.device) -> dict:
     from dealii_multigrid_tpu_torch.ops import patch_stencil as ps
 
     rng = np.random.default_rng(0)
-    measured = {"max_abs_err": 0.0, "shapes": {}}
+    measured = {"max_abs_err": 0.0, "max_abs_err_f64": 0.0, "shapes": {}}
 
     def compare(what, dtype, NP, S, KS, MS, band):
         xp = torch.as_tensor(rng.standard_normal((NP, S**3)), dtype=dtype, device=dev)
@@ -240,8 +279,9 @@ def check_kernel(dev: torch.device) -> dict:
         print(f"kernel check {what} {name} NP={NP} S={S} band={band}: max_abs_err={err:.3e} "
               f"max|ref|={rmax:.3e} ok={ok}", flush=True)
         check(ok, f"patch stencil kernel disagrees with the plain version ({what} {name} NP={NP} S={S})")
-        if dtype == torch.float32 and what == "main-path":
-            measured["max_abs_err"] = max(measured["max_abs_err"], err)
+        if what == "main-path":
+            key = "max_abs_err" if dtype == torch.float32 else "max_abs_err_f64"
+            measured[key] = max(measured[key], err)
 
     for dtype in (torch.float32, torch.float64):
         for S in (9, 17, 33):
@@ -267,32 +307,46 @@ def check_kernel(dev: torch.device) -> dict:
             compare(f"random band b={b}", dtype, 8, S, KS, MS, b)
 
     # timings: every main-path shape in float32, the finest also in float64
+    measured["per_dtype"] = {}
     for dtype, shapes in ((torch.float32, MAIN_SHAPES), (torch.float64, MAIN_SHAPES[:1])):
         for NP, S in shapes:
             KS, MS = assembled(4, S, dtype, dev)
             xp = torch.as_tensor(rng.standard_normal((NP, S**3)), dtype=dtype, device=dev)
             sc = torch.as_tensor(rng.uniform(0.5, 2.0, NP), dtype=dtype, device=dev)
             b_ms, b_by = bound(NP, S, KS, MS, dtype)
-            kern = lambda: ps.patch_stencil(xp, KS, MS, sc, 4)  # noqa: E731
-            if (dtype, NP, S) == (torch.float32, 512, 33):
-                # plain, kernel, kernel, plain: compare within one call
-                plain = lambda: ps.patch_stencil_reference(xp, KS, MS, sc)  # noqa: E731
-                t_plain = [time_ms(plain, TIMED_LAUNCHES)]
-                t_kern = [time_ms(kern, TIMED_LAUNCHES), time_ms(kern, TIMED_LAUNCHES)]
-                t_plain.append(time_ms(plain, TIMED_LAUNCHES))
-                measured["plain_ms"] = min(t_plain)
-                print(f"stencil NP=512 S=33 f32: kernel {t_kern} ms, plain {t_plain} ms "
-                      f"(each the mean of {TIMED_LAUNCHES} launches)", flush=True)
-            else:
-                t_kern = [time_ms(kern, TIMED_LAUNCHES), time_ms(kern, TIMED_LAUNCHES)]
-            ms = min(t_kern)
-            measured["shapes"][(dtype, NP, S)] = (ms, b_ms, b_by)
-            name = "f32" if dtype == torch.float32 else "f64"
-            print(f"stencil timing {name} NP={NP} S={S}: {ms:.6f} ms (runs {t_kern}), bound "
+            ms = time_shape(measured, dtype, NP, S, xp, KS, MS, sc)
+            print(f"stencil timing {DTYPE_TAG[dtype]} NP={NP} S={S}: {ms:.6f} ms, bound "
                   f"{1e3 * b_ms:.2f} us ({b_by}), roofline share {b_ms / ms:.4f}", flush=True)
+            measured["shapes"][(dtype, NP, S)] = (ms, b_ms, b_by)
     ms, b_ms, b_by = measured["shapes"][(torch.float32, 512, 33)]
-    measured.update(ms=ms, bound_ms=b_ms, bound_by=b_by)
+    measured.update(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                    plain_ms=measured["per_dtype"][torch.float32]["plain_ms"])
+    for dtype in (torch.float32, torch.float64):
+        ms, b_ms, b_by = measured["shapes"][(dtype, 512, 33)]
+        measured["per_dtype"][dtype].update(ms=ms, bound_ms=b_ms, bound_by=b_by)
+    measured["per_dtype"][torch.float32]["max_abs_err"] = measured["max_abs_err"]
+    measured["per_dtype"][torch.float64]["max_abs_err"] = measured["max_abs_err_f64"]
     return measured
+
+
+def time_shape(measured: dict, dtype, NP: int, S: int, xp, KS, MS, sc) -> float:
+    """The kernel's time (CUDA events, the better of two runs of
+    TIMED_LAUNCHES launches) at one shape; at (512, 33) also the plain
+    version's, in turns (plain, kernel, kernel, plain), into
+    ``measured["per_dtype"][dtype]["plain_ms"]``."""
+    from dealii_multigrid_tpu_torch.ops import patch_stencil as ps
+
+    kern = lambda: ps.patch_stencil(xp, KS, MS, sc, 4)  # noqa: E731
+    if (NP, S) != (512, 33):
+        return min(time_ms(kern, TIMED_LAUNCHES), time_ms(kern, TIMED_LAUNCHES))
+    plain = lambda: ps.patch_stencil_reference(xp, KS, MS, sc)  # noqa: E731
+    t_plain = [time_ms(plain, TIMED_LAUNCHES)]
+    t_kern = [time_ms(kern, TIMED_LAUNCHES), time_ms(kern, TIMED_LAUNCHES)]
+    t_plain.append(time_ms(plain, TIMED_LAUNCHES))
+    measured["per_dtype"].setdefault(dtype, {})["plain_ms"] = min(t_plain)
+    print(f"stencil NP=512 S=33 {DTYPE_TAG[dtype]}: kernel {t_kern} ms, plain {t_plain} ms "
+          f"(each the mean of {TIMED_LAUNCHES} launches)", flush=True)
+    return min(t_kern)
 
 
 class Entry(NamedTuple):
@@ -400,7 +454,8 @@ def check_solve(name: str, result, entries, launches: int, n_it: int | None = No
 
 def check_levels(name: str, entries, iterations: int, card: str, rng) -> None:
     """Each patch level's own KS, MS and pscale through the kernel against the
-    plain version (the level's dtype and float64), its time with CUDA events
+    plain version (the level's dtype and float64; bfloat16 as
+    ``compare_bf16``), its time with CUDA events
     in the dtype the solve launches it in, and launches per solve (of
     ``iterations`` CG iterations) x time against the bound."""
     from dealii_multigrid_tpu_torch.ops import patch_stencil as ps
@@ -413,6 +468,9 @@ def check_levels(name: str, entries, iterations: int, card: str, rng) -> None:
         for dtype in (op.dtype, torch.float64):
             KS, MS, sc = (t.to(dtype).contiguous() for t in (op.KS, op.MS, op.pscale))
             xp = torch.as_tensor(rng.standard_normal((op.NP, op.S**3)), dtype=dtype, device=op.device)
+            if dtype == torch.bfloat16:
+                compare_bf16(f"{name} {label}", xp, KS, MS, sc, op.band)
+                continue
             got = ps.patch_stencil(xp, KS, MS, sc, op.band)
             ref = ps.patch_stencil_reference(xp, KS, MS, sc)
             torch.cuda.synchronize()
@@ -432,7 +490,7 @@ def check_levels(name: str, entries, iterations: int, card: str, rng) -> None:
         ms = min(time_ms(kern, TIMED_LAUNCHES), time_ms(kern, TIMED_LAUNCHES))
         b_ms, b_by = bound(op.NP, op.S, KS, MS, run_dtype)
         total += n * ms
-        tag = "f32" if run_dtype == torch.float32 else "f64"
+        tag = DTYPE_TAG[run_dtype]
         print(f"{name} {label} {tag} NP={op.NP} S={op.S} band={op.band}: {n} launches "
               f"per solve x {ms:.6f} ms = {n * ms:.4f} ms; bound {1e3 * b_ms:.2f} us ({b_by}), "
               f"roofline share {b_ms / ms:.4f}; card {card}", flush=True)
@@ -515,6 +573,9 @@ P_SITES = (
     "LaplaceOperator.vmult", "TwoLevelTransfer.restrict h", "TwoLevelTransfer.restrict p",
     "LSTransfer.restrict", "Poisson RHS",
 )
+#: phase p's sites on phase x's bfloat16 hierarchies
+P_SITES_BF16 = ("HybridOperator.vmult bf16", "HybridTransfer.restrict h bf16",
+                "HybridTransfer.restrict p bf16")
 #: 2D quadrant r=10 p=4, as the port's host set-up counts them
 N_DOFS_2D_R10 = 4_226_487
 
@@ -530,9 +591,11 @@ def table_desc(tables: dict) -> str:
 
 def repeat_check(label: str, where: str, fn, x: torch.Tensor, tables: dict, done: set,
                  card: str, n: int = 20) -> None:
-    """Phase p: the same float32 input through ``fn`` n times on the card;
-    every output must equal the first bit for bit."""
-    check(x.dtype == torch.float32 and x.is_cuda, f"phase p {label}: input not float32 on the card")
+    """Phase p: the same float32 (bfloat16 on phase x's hierarchies) input
+    through ``fn`` n times on the card; every output must equal the first bit
+    for bit."""
+    check(x.dtype in (torch.float32, torch.bfloat16) and x.is_cuda,
+          f"phase p {label}: input not float32 or bfloat16 on the card")
     ref = fn(x)
     same = 1
     for _ in range(n - 1):
@@ -546,18 +609,23 @@ def repeat_check(label: str, where: str, fn, x: torch.Tensor, tables: dict, done
 
 def hybrid_sites(levels, mg, done: set, card: str, where: str, p_transfer: bool) -> None:
     """Phase p on a hybrid hierarchy: the finest operator's vmult and the
-    finest h- (or p-) restriction, on consistent float32 slot vectors."""
+    finest h- (or p-) restriction, on consistent slot vectors of the levels'
+    dtype (float32; bfloat16 in phase x, whose sites carry the suffix
+    " bf16"); on a float32 h-hierarchy also the Poisson right-hand side."""
     fine, coarse = levels[-1], levels[-2]
     tr = mg.transfers[-1]
     rng = np.random.default_rng(20)
+    dtype = fine.op.dtype
+    tag = "" if dtype == torch.float32 else f" {DTYPE_TAG[dtype]}"
     x = torch.as_tensor(fine.fmt.from_global(rng.standard_normal(fine.dofh.n_dofs)),
-                        dtype=torch.float32, device=fine.op.device)
+                        dtype=dtype, device=fine.op.device)
     if not p_transfer:
-        repeat_check("HybridOperator.vmult", where, fine.op.vmult, x, fine.op.sum_tables(), done, card)
+        repeat_check("HybridOperator.vmult" + tag, where, fine.op.vmult, x, fine.op.sum_tables(),
+                     done, card)
     tables = {"restrict": tr.restrict_sum, **{f"coarse {k}": v for k, v in coarse.op.sum_tables().items()}}
     kind = "p" if p_transfer else "h"
-    repeat_check(f"HybridTransfer.restrict {kind}", where, tr.restrict, x, tables, done, card)
-    if not p_transfer:
+    repeat_check(f"HybridTransfer.restrict {kind}{tag}", where, tr.restrict, x, tables, done, card)
+    if not p_transfer and not tag:
         from dealii_multigrid_tpu_torch.models import poisson
         from dealii_multigrid_tpu_torch.ops.hybrid_format import cell_slot_table
 
@@ -1075,11 +1143,244 @@ def phase_w(dev, card: str, paths: dict) -> None:
             os.environ["MGTPU_DEBUG"] = saved
 
 
+# ---------------------------------------------------------------------------
+# phase x (bfloat16 levels and the bfloat16 instance of the stencil)
+# ---------------------------------------------------------------------------
+
+
+def compare_bf16(what: str, xp, KS, MS, sc, band: int) -> tuple[float, float]:
+    """The bfloat16 kernel on bfloat16 inputs against a float64 stencil of
+    the same (rounded) inputs, elementwise to one rounding, and against the
+    plain bfloat16 version; returns (max|kernel - plain|, max|plain|)."""
+    from dealii_multigrid_tpu_torch.ops import patch_stencil as ps
+
+    got = ps.patch_stencil(xp, KS, MS, sc, band).double()
+    plain = ps.patch_stencil_reference(xp, KS, MS, sc).double()
+    ref64 = ps.patch_stencil_reference(*(t.double() for t in (xp, KS, MS, sc)))
+    torch.cuda.synchronize()
+    r64max = float(ref64.abs().max())
+    err64 = (got - ref64).abs()
+    ok64 = bool(torch.all(err64 <= BF16_RTOL * ref64.abs() + BF16_ATOL_REL * r64max))
+    # the largest error in units of the allowance (<= 1 passes)
+    used = float((err64 / (BF16_RTOL * ref64.abs() + BF16_ATOL_REL * r64max)).max())
+    err_plain, pmax = float((got - plain).abs().max()), float(plain.abs().max())
+    ok_plain = err_plain <= BF16_PLAIN_REL * pmax
+    NP, S = xp.shape[0], KS.shape[0]
+    print(f"kernel check {what} bf16 NP={NP} S={S} band={band}: vs float64 of the bf16 inputs "
+          f"max_abs_err={float(err64.max()):.3e} max|ref64|={r64max:.3e} allowance used "
+          f"{used:.3f} ok={ok64}; vs plain bf16 max_abs_err={err_plain:.3e} max|plain|={pmax:.3e} "
+          f"({err_plain / pmax:.3e} of max, limit {BF16_PLAIN_REL:g}) ok={ok_plain}", flush=True)
+    check(ok64, f"bf16 kernel beyond one rounding of the float64 stencil ({what} NP={NP} S={S})")
+    check(ok_plain, f"bf16 kernel disagrees with the plain bf16 version ({what} NP={NP} S={S})")
+    return err_plain, pmax
+
+
+def check_kernel_bf16(dev: torch.device, measured: dict, card: str) -> None:
+    """Phase x, kernel: the bfloat16 instance at phase 3's shapes (S in {9,
+    17, 33} x NP in {1, 8, 512}, the six main-path shapes, degree p in {1,
+    2, 3, 4, 8} with band p, random bands at S = 33), then its time at the
+    six main-path shapes and the plain version's at (512, 33); fills
+    ``measured["per_dtype"][torch.bfloat16]``."""
+    from dealii_multigrid_tpu_torch.ops import patch_stencil as ps
+
+    bf = torch.bfloat16
+    rng = np.random.default_rng(8)
+
+    def inputs(NP, S):
+        return (torch.as_tensor(rng.standard_normal((NP, S**3)), dtype=bf, device=dev),
+                torch.as_tensor(rng.uniform(0.5, 2.0, NP), dtype=bf, device=dev))
+
+    worst = 0.0
+    for S in (9, 17, 33):
+        KS, MS = assembled(4, S, bf, dev)
+        for NP in (1, 8, 512):
+            xp, sc = inputs(NP, S)
+            compare_bf16("grid", xp, KS, MS, sc, 4)
+    for NP, S in MAIN_SHAPES:
+        KS, MS = assembled(4, S, bf, dev)
+        xp, sc = inputs(NP, S)
+        worst = max(worst, compare_bf16("main-path", xp, KS, MS, sc, 4)[0])
+    for p in (1, 2, 3, 4, 8):
+        S = 8 * p + 1
+        KS, MS = assembled(p, S, bf, dev)
+        xp, sc = inputs(8, S)
+        compare_bf16(f"degree p={p}", xp, KS, MS, sc, p)
+    S = 33
+    i, j = np.indices((S, S))
+    for b in (1, 2, 3, 5, 7):
+        KS, MS = (
+            torch.as_tensor(np.where(abs(i - j) <= b, rng.standard_normal((S, S)), 0.0),
+                            dtype=bf, device=dev)
+            for _ in range(2)
+        )
+        check(ps.matrix_band(KS.float().cpu(), MS.float().cpu()) == b, f"random band {b} (bf16)")
+        xp, sc = inputs(8, S)
+        compare_bf16(f"random band b={b}", xp, KS, MS, sc, b)
+    for NP, S in MAIN_SHAPES:
+        KS, MS = assembled(4, S, bf, dev)
+        xp, sc = inputs(NP, S)
+        b_ms, b_by = bound(NP, S, KS, MS, bf)
+        ms = time_shape(measured, bf, NP, S, xp, KS, MS, sc)
+        measured["shapes"][(bf, NP, S)] = (ms, b_ms, b_by)
+        print(f"stencil timing bf16 NP={NP} S={S}: {ms:.6f} ms, bound {1e3 * b_ms:.2f} us "
+              f"({b_by}), roofline share {b_ms / ms:.4f}; f32 at this shape "
+              f"{measured['shapes'][(torch.float32, NP, S)][0]:.6f} ms; card {card}", flush=True)
+    ms, b_ms, b_by = measured["shapes"][(bf, 512, 33)]
+    measured["per_dtype"][bf].update(ms=ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=worst)
+
+
+@contextlib.contextmanager
+def one_rounding_stencil():
+    """The CPU's bfloat16 stencil rounded once, as the card's kernel rounds
+    (a float64 stencil of the bfloat16 inputs, rounded to bfloat16), where
+    the plain chain rounds after every contraction."""
+    from dealii_multigrid_tpu_torch.ops import patch_stencil as ps
+
+    plain = ps.patch_stencil_reference
+
+    def once(xp, KS, MS, pscale):
+        if xp.dtype != torch.bfloat16:
+            return plain(xp, KS, MS, pscale)
+        return plain(*(t.double() for t in (xp, KS, MS, pscale))).to(torch.bfloat16)
+
+    ps.patch_stencil_reference = once
+    try:
+        yield
+    finally:
+        ps.patch_stencil_reference = plain
+
+
+#: phase x's card-against-CPU rows at quadrant r=3 p=4: (type, MGNumberType,
+#: NumberType, the JAX package's iteration count on the CPU, and the card's:
+#: the JAX package's count on the CPU with its bfloat16 stencil rounded once,
+#: as the kernel rounds; tests/test_torch_bf16_solve.py holds both)
+BF16_SMALL = (
+    ("HMG-global", "bfloat16", "float", 4, 4),
+    ("HMG-global", "bfloat16", "double", 4, 4),
+    ("HMG-global", "float", "float", 4, 4),
+    ("HPMG", "bfloat16", "double", 4, 4),
+    ("HMG-local", "bfloat16", "double", 5, 4),
+)
+
+
+def phase_x(dev, card: str, measured: dict, paths: dict, done: set) -> None:
+    """bfloat16 levels: the kernel (check_kernel_bf16); card against CPU at
+    r=3 p=4 (BF16_SMALL: the CPU's plain chain takes the JAX package's
+    count, and the card takes the count of the port's CPU run whose stencil
+    rounds once, as the kernel does, and the JAX package's count so rounded);
+    HMG-global r=7 p=4 under float and HPMG r=7 p=4
+    under mixed with bfloat16 levels, 5 repetitions each: converged, the
+    guard, one count in all solves, launches per dtype as expected (the
+    outer operator is float32: one launch per iteration and one for the
+    guard; every other launch is bfloat16), each level's kernel check, and
+    phase p's sites on the bfloat16 levels."""
+    from dealii_multigrid_tpu_torch import api
+    from dealii_multigrid_tpu_torch.ops import patch_stencil as ps
+
+    bf = torch.bfloat16
+    check_kernel_bf16(dev, measured, card)
+    for mg_type, mg_number, number, n_jax, n_card in BF16_SMALL:
+        prm = bench_params(3, 4, number, 1, mg_type, mg_number)
+        res_gpu, _, _ = api.run(prm, dev)
+        res_cpu, _, _ = api.run(prm, "cpu")
+        with one_rounding_stencil():
+            res_once, _, _ = api.run(prm, "cpu")
+        rel = norm_rel(res_gpu.x, res_once.x)
+        print(f"phase x: {mg_type} r=3 p=4 {number}/{mg_number}: card {res_gpu.solve_iterations} it, "
+              f"cpu with the stencil rounded once {res_once.solve_iterations} it, cpu plain chain "
+              f"{res_cpu.solve_iterations} it (JAX package on the CPU: {n_jax}, rounded once "
+              f"{n_card}), x card vs cpu rounded once {rel:.3e} relative (2-norm); card {card}",
+              flush=True)
+        check(res_gpu.converged and res_gpu.n_iterations == res_once.n_iterations == n_card
+              and res_cpu.n_iterations == n_jax,
+              f"phase x: {mg_type} {number}/{mg_number} r=3: card {res_gpu.n_iterations}, cpu "
+              f"rounded once {res_once.n_iterations}, cpu plain {res_cpu.n_iterations}, JAX {n_jax}, "
+              f"JAX rounded once {n_card}")
+        check(res_gpu.x.is_cuda and bool(torch.isfinite(res_gpu.x).all()) and rel <= 1e-2,
+              f"phase x: {mg_type} {number}/{mg_number} r=3: x not finite or far from the CPU's")
+    rng = np.random.default_rng(3)
+    for key, mg_type, number, n_levels in (
+        ("hmg_global_r7_bf16_float", "HMG-global", "float", 8),
+        ("hpmg_r7_bf16_mixed", "HPMG", "mixed", 10),
+    ):
+        prm = bench_params(7, 4, number, 5, mg_type, "bfloat16")
+        before = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (res, _problem, levels), launches = counted(lambda: api.run(prm, dev))
+        per_dtype = dict(ps.launches.per_dtype)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        paths[key] = launches
+        name = f"{mg_type} r=7 {number}/bfloat16"
+        check(res.n_dofs == 17_551_967 and len(levels) == n_levels
+              and all(lv.op.dtype == bf for lv in levels),
+              f"{name}: {res.n_dofs} DoFs, {len(levels)} levels, {[lv.op.dtype for lv in levels]}")
+        entries = gc_entries(levels, prm)
+        check_solve(name, res, entries, launches)
+        its = res.solve_iterations
+        outer = sum(its) + 1
+        expect = {torch.float32: outer, bf: expected_launches(entries, its) - outer}
+        print(f"{name}: launches per dtype { {DTYPE_TAG[k]: v for k, v in per_dtype.items()} } "
+              f"(expected { {DTYPE_TAG[k]: v for k, v in expect.items()} })", flush=True)
+        check(per_dtype == expect, f"{name}: launches per dtype {per_dtype} != {expect}")
+        paths[key + "_bf16"] = per_dtype[bf]
+        print(f"{name}: n_dofs {res.n_dofs}, levels {len(levels)}, iterations {its} (float "
+              f"levels: 3 HMG-global, 4 HPMG), solve {res.time:.6f} s "
+              f"(reps {[round(t, 6) for t in res.time_per_rep]}), {res.throughput / 1e6:.3f} MDoF/s, "
+              f"setup {res.setup_time:.1f} s, run wall {wall:.1f} s, peak mem {peak:.2f} GiB "
+              f"(allocated before the run {before:.2f} GiB); card {card}", flush=True)
+        hybrid_sites(levels, res.mg, done, card, f"{name} finest levels",
+                     p_transfer=mg_type == "HPMG")
+        check_levels(name, entries, res.n_iterations, card, rng)
+        del res, _problem, levels, entries
+        torch.cuda.empty_cache()
+
+
+#: the record phase y holds the runner to, in the repository
+SMALL_SCALING_RECORD = os.path.join("results", "small-scaling-quadrant-tpu-merged.txt")
+
+
+def phase_y(card: str, paths: dict) -> None:
+    """The port's experiment runner on the card: small-scaling quadrant up
+    to r=5 (12 rows: r=3-5, p in {1, 4}, HMG-local and HMG-global), held
+    to the TPU record's iteration counts; every row equal, none failed, the
+    artifact's header and device column name the card."""
+    from dealii_multigrid_tpu_torch.tools import run_experiment as rx
+
+    record = os.path.join(os.path.dirname(os.path.abspath(__file__)), SMALL_SCALING_RECORD)
+    with tempfile.TemporaryDirectory() as tmp:
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            sweep, launches = counted(lambda: rx.run_experiment(
+                "small-scaling", ["quadrant"], "cuda:0", os.path.join(tmp, "ss.txt"), max_ref=5,
+                against=[record],
+            ))
+        with open(sweep.out_path) as f:
+            head = f.readline().rstrip("\n")
+    paths["runner_small_scaling_r5"] = launches
+    for _, cfg, _, text in sweep.verdicts:
+        print(f"phase y: {cfg} {text}", flush=True)
+    print(f"phase y: {len(sweep.ran)} ran in {sum(t for _, t in sweep.ran):.1f} s, "
+          f"{len(sweep.failed)} failed, {sweep.count('equal')} equal to {SMALL_SCALING_RECORD}, "
+          f"{sweep.count('differs')} differ, stencil launches {launches}; artifact header "
+          f"{head!r}; card {card}", flush=True)
+    check(len(sweep.ran) == 12 and not sweep.failed, f"phase y: {len(sweep.ran)} rows ran, failed "
+          f"{sweep.failed}")
+    check(sweep.count("equal") == 12, "phase y: a row's count is not the record's")
+    check(head.startswith(f"# device: {card} |"), f"phase y: artifact header {head!r}")
+    check(all(row["device"] == card for row in sweep.rows), "phase y: a row's device column")
+    check(launches > 0, "phase y: the runner launched no stencil")
+
+
 def new_phases(dev, card: str, done: set, n_ref_2d: int) -> dict:
     """Phases q, r, s, t, in that order (phase p runs inside b, d and r)."""
     phase_q(dev, card)
+    stamp("r")
     its = phase_r(dev, card, n_ref_2d, done)
+    stamp("s")
     phase_s(dev, card)
+    stamp("t")
     phase_t(card)
     return its
 
@@ -1102,6 +1403,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)} ({card})",
           flush=True)
 
+    stamp("2 (build)")
     # 2. build
     secs = ps.build()
     print(f"kernel build: {secs:.1f} s -> {ps.library.path}", flush=True)
@@ -1110,10 +1412,12 @@ def main() -> int:
 
     done: set = set()  # phase p's sites
 
+    stamp("3")
     # 3. kernel against the plain version
     measured = check_kernel(dev)
     rng = np.random.default_rng(1)
 
+    stamp("4a")
     # 4a. small solve on the card against the same solve on the CPU
     small = bench_params(3, 2, "double", 1)
     res_gpu, _, _ = api.run(small, dev)
@@ -1124,6 +1428,7 @@ def main() -> int:
     check(res_gpu.n_iterations == res_cpu.n_iterations and rel <= 1e-8,
           "card solve disagrees with the CPU solve at r=3 p=2")
 
+    stamp("4b")
     # 4b. the main path: quadrant r=7 p=4, float, 5 repetitions
     prm = bench_params(7, 4, "float", 5)
     before = torch.cuda.memory_allocated() / 2**30
@@ -1131,7 +1436,8 @@ def main() -> int:
     t0 = time.perf_counter()
     (result, _problem, levels), launches = counted(lambda: api.run(prm, dev))
     wall = time.perf_counter() - t0
-    paths = {"hmg_global_r7_float": launches}
+    paths = {"hmg_global_r7_float": launches,
+             "hmg_global_r7_float_f32": ps.launches.per_dtype.get(torch.float32, 0)}
     print(f"levels (NP, S, NS, use_cross): {[(lv.op.NP, lv.op.S, lv.op.NS, lv.op.use_cross) for lv in levels]}",
           flush=True)
     entries = gc_entries(levels, prm)
@@ -1164,6 +1470,7 @@ def main() -> int:
     del result, _problem, levels, entries, op
     torch.cuda.empty_cache()
 
+    stamp("4c")
     # 4c. card against CPU, small: PMG and HPMG in double, mixed and df32
     for mg_type, r, p, number, mg_number, tol in (
         ("PMG", 3, 4, "double", "double", 1e-8),
@@ -1183,6 +1490,7 @@ def main() -> int:
               and res_gpu.x.dtype == res_cpu.x.dtype,
               f"card solve disagrees with the CPU solve ({mg_type} r={r} p={p} {number})")
 
+    stamp("4d")
     # 4d. HPMG quadrant r=7 p=4, mixed outer CG around float levels
     prm = bench_params(7, 4, "mixed", 5, "HPMG", "float")
     before = torch.cuda.memory_allocated() / 2**30
@@ -1203,6 +1511,7 @@ def main() -> int:
           f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"(allocated before the run {before:.2f} GiB); card {card}", flush=True)
 
+    stamp("4e")
     # 4e. df32 on the same hierarchy: the f64 RHS split exactly into a pair
     fine = levels[-1]
     b_pair = twofloat.tf_split_f64_host(res_m.rhs_used)
@@ -1227,6 +1536,7 @@ def main() -> int:
     del res_m, res_d, b_pair, fine, _problem, levels, entries
     torch.cuda.empty_cache()
 
+    stamp("4f")
     # 4f. PMG quadrant r=5 p=4 mixed: dense coarse solve on the fine mesh at p=1
     prm = bench_params(5, 4, "mixed", 5, "PMG", "float")
     (res_p, _problem, levels), launches = counted(lambda: api.run(prm, dev))
@@ -1241,6 +1551,7 @@ def main() -> int:
     del res_p, _problem, levels, entries
     torch.cuda.empty_cache()
 
+    stamp("4g")
     # 4g. card against CPU, small: HMG-local and HPMG-local
     for mg_type, r, p, number, mg_number, tol in (
         ("HMG-local", 3, 4, "double", "double", 1e-8),
@@ -1260,6 +1571,7 @@ def main() -> int:
               and res_gpu.x.dtype == res_cpu.x.dtype,
               f"card solve disagrees with the CPU solve ({mg_type} r={r} p={p} {number})")
 
+    stamp("4h, 4i")
     # 4h, 4i. HMG-local and HPMG-local quadrant r=7 p=4, double over float
     # (the records' configuration: results/small-scaling-quadrant-tpu-merged.txt:23)
     for key, mg_type, n_levels, n_it in (
@@ -1273,6 +1585,7 @@ def main() -> int:
         (res, _problem, levels), launches = counted(lambda: api.run(prm, dev))
         wall = time.perf_counter() - t0
         paths[key] = launches
+        paths[key + "_f64"] = ps.launches.per_dtype.get(torch.float64, 0)
         ls_levels = res.ls_mg.levels
         print(f"{mg_type} r=7: LS levels (n_dofs, NP, S, NS, band) "
               f"{[(lv.fmt.dofh.n_dofs, lv.op.NP, lv.op.S, lv.op.NS, lv.op.band) for lv in ls_levels]}",
@@ -1293,6 +1606,7 @@ def main() -> int:
         del res, _problem, levels, ls_levels, entries
         torch.cuda.empty_cache()
 
+    stamp("4j")
     # 4j. card against CPU, small, double, the coarse solve really AMG
     from dealii_multigrid_tpu_torch import cli
     from dealii_multigrid_tpu_torch.solvers import coarse as coarse_mod
@@ -1330,6 +1644,7 @@ def main() -> int:
     del res_gpu, res_cpu, lv_gpu, solver, amg
     torch.cuda.empty_cache()
 
+    stamp("4k")
     # 4k. PMG quadrant r=7 p=4 mixed over float levels, AMG on the fine mesh at p=1
     prm = bench_params(7, 4, "mixed", 5, "PMG", "float")
     before = torch.cuda.memory_allocated() / 2**30
@@ -1355,6 +1670,7 @@ def main() -> int:
           f"(allocated before the run {before:.2f} GiB); card {card}", flush=True)
     check_levels("PMG r=7", entries, res_k.n_iterations, card, rng)
 
+    stamp("4l")
     # 4l. other coarse types on k's hierarchy (the outer operator, the
     # right-hand side, transfers and smoothers are k's)
     fine = levels[-1]
@@ -1391,6 +1707,7 @@ def main() -> int:
     del res_k, amg_k, fine, outer_op, _problem, levels, entries
     torch.cuda.empty_cache()
 
+    stamp("4m")
     # 4m. truncated HPMG quadrant r=6 p=4 (MinLevel 7: the fine mesh only),
     # double over float levels, beside the records' iteration counts
     for coarse, n_cycles, record in (
@@ -1414,6 +1731,7 @@ def main() -> int:
         del res, _problem, levels, entries, amg
         torch.cuda.empty_cache()
 
+    stamp("4n")
     # 4n. AMG and AMGPETSc alone on quadrant r=7 p=1, double (gather engine:
     # no stencil launch)
     for mg_type in ("AMG", "AMGPETSc"):
@@ -1438,6 +1756,7 @@ def main() -> int:
         del res, _problem, levels, amg
         torch.cuda.empty_cache()
 
+    stamp("4o")
     # 4o. the CLI: two parameter files, one cumulative table
     common = {"GeometryType": "quadrant", "NRefGlobal": 7, "Degree": 4, "SmootherDegree": 3,
               "RelativeTolerance": 1e-4, "MGNumberType": "float", "CoarseGridSolverType": "amg",
@@ -1469,34 +1788,55 @@ def main() -> int:
     check(launches > 0, "the CLI runs launched no stencil")
     torch.cuda.empty_cache()
 
+    stamp("4p-4t")
     # 4p-4t. 2D on the gather engine, Stokes, the 2D CLI; phase p's sites
     its_2d = new_phases(dev, card, done, 10)
     print(f"2D r=10 iterations {its_2d}", flush=True)
-    check(done == set(P_SITES), f"phase p covered {sorted(done)}, not {P_SITES}")
 
+    stamp("4u-4w")
     # 4u-4w. the n-sinker model and the convection demo (no stencil), debug mode
     for key, phase in (("nsinker", phase_u), ("convection", phase_v)):
+        stamp(key)
         _, launches = counted(lambda: phase(dev, card))
         paths[key] = launches
         check(launches == 0, f"phase {key} launched the stencil {launches} times")
+    stamp("w")
     phase_w(dev, card, paths)
 
-    # result lines
-    print(json.dumps({"kernels": [{
-        "name": "patch_stencil",
-        "route": "cuda",
-        "source": "dealii_multigrid_tpu_torch/csrc/patch_stencil.cu",
-        "replaces": "dealii_multigrid_tpu/ops/pallas_stencil.py:71",
-        "launches": paths["hmg_global_r7_float"],
-        "launches_per_path": paths,
-        "max_abs_err": measured["max_abs_err"],
-        "ms": measured["ms"],
-        "plain_ms": measured["plain_ms"],
-        "bound_ms": measured["bound_ms"],
-        "bound_by": measured["bound_by"],
-        "roofline_share": measured["bound_ms"] / measured["ms"],
-        "library_ms": None,  # no single PyTorch call computes this function
-    }]}), flush=True)
+    stamp("4x, 4y")
+    # 4x, 4y. bfloat16 levels and the bfloat16 instance; the experiment runner
+    phase_x(dev, card, measured, paths, done)
+    check(done == set(P_SITES) | set(P_SITES_BF16), f"phase p covered {sorted(done)}")
+    stamp("y")
+    phase_y(card, paths)
+
+    stamp("result lines")
+    # result lines: one entry per instance of the kernel, each with the
+    # launches of the path that runs it in that dtype (f32: the main path b;
+    # f64: h's double outer operator; bf16: x's HMG-global r=7)
+    main_path = {torch.float32: paths["hmg_global_r7_float_f32"],
+                 torch.float64: paths["hmg_local_r7_f64"],
+                 torch.bfloat16: paths["hmg_global_r7_bf16_float_bf16"]}
+    kernels = []
+    for dtype, m in measured["per_dtype"].items():
+        tag = DTYPE_TAG[dtype]
+        kernels.append({
+            # the float32 instance keeps the kernel's original name
+            "name": "patch_stencil" if dtype == torch.float32 else f"patch_stencil_{tag}",
+            "route": "cuda",
+            "source": "dealii_multigrid_tpu_torch/csrc/patch_stencil.cu",
+            "replaces": "dealii_multigrid_tpu/ops/pallas_stencil.py:71",
+            "launches": main_path[dtype],
+            "max_abs_err": m["max_abs_err"],
+            "ms": m["ms"],
+            "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"],
+            "roofline_share": m["bound_ms"] / m["ms"],
+            "library_ms": None,  # no single PyTorch call computes this function
+        })
+    kernels[0]["launches_per_path"] = paths
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

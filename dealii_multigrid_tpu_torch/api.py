@@ -10,10 +10,11 @@ smoothing), as in the JAX package.  Any of the reference's coarse-solver
 types sits below; AMG and AMGPETSc precondition the gather-engine operator
 with the algebraic solver alone.  The outer solve is a Python-loop PCG in
 float, double, mixed (float64 vectors around float32 levels) or df32
-(double-single float32 pairs, solvers/twofloat.py, hybrid engine only),
-and timings are fenced with ``torch.cuda.synchronize()``.  What is not
-ported yet (bfloat16 levels, sharded solves) raises NotImplementedError
-naming its ROADMAP item.
+(double-single float32 pairs, solvers/twofloat.py, hybrid engine only)
+around levels of MGNumberType float, double or bfloat16 (the bfloat16
+levels' dense coarse factors are float32), and timings are fenced with
+``torch.cuda.synchronize()``.  Sharded solves are not ported yet and raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ from .utils.phases import PhaseRecorder, checked, instrument
 _DTYPES = {
     "float": torch.float32,
     "double": torch.float64,
+    "bfloat16": torch.bfloat16,
     # float64 Krylov vectors and dots around the float32 operator
     "mixed": torch.float64,
     # double-single float32 pairs (solvers/twofloat.py); vectors round to
@@ -71,10 +73,6 @@ _DTYPES = {
 
 
 def number_dtype(name: str) -> torch.dtype:
-    if name == "bfloat16":
-        raise NotImplementedError(
-            "number type 'bfloat16' is not ported yet (ROADMAP item 6, bfloat16 levels)"
-        )
     if name not in _DTYPES:
         raise ValueError(f"unknown number type {name!r}")
     return _DTYPES[name]

@@ -1,5 +1,6 @@
-// Sum-factorized patch Laplacian on Hopper (sm_90a), float and double: one
-// fused pass over device memory that contracts only inside the band.
+// Sum-factorized patch Laplacian on Hopper (sm_90a), float, double and
+// bfloat16: one fused pass over device memory that contracts only inside the
+// band.
 //
 // Replaces the TPU kernel dealii_multigrid_tpu/ops/pallas_stencil.py
 // (_kernel / patch_stencil_pallas, pl.pallas_call at :71).  Per patch p of
@@ -18,10 +19,11 @@
 // it costs 7 banded axis contractions, 7 (2 band + 1) FMAs per lattice point.
 //
 // Bound on the card.  Device traffic is one read of u and one write of out:
-// 2 NP S^3 values, 147.2 MB in f32 and 294.4 MB in f64 at NP = 512, S = 33,
-// i.e. 43.9 us and 87.9 us at 3.35 TB/s.  The band work at p = 4 is about
-// 1.5 GFLOP (22 us of FP32 FMA at 67 TFLOP/s), so the kernel is bound by
-// device memory; on the way there it is held by instruction throughput and
+// 2 NP S^3 values, 73.6 MB in bf16, 147.2 MB in f32 and 294.4 MB in f64 at
+// NP = 512, S = 33, i.e. 22.0 us, 43.9 us and 87.9 us at 3.35 TB/s.  The
+// band work at p = 4 is about 1.5 GFLOP (22 us of FP32 FMA at 67 TFLOP/s),
+// so the f32 and f64 kernels are bound by device memory (the bf16 one, on
+// FP32 FMA, by both alike); on the way there it is held by instruction throughput and
 // latency (the 63 band FMAs of a point come with shared-memory loads,
 // copies and index arithmetic; PERF.md has the measurements).  What each
 // design choice does about that:
@@ -63,14 +65,27 @@
 //    card (patch_stencil_init); occupancy is cached per S; the wrapper
 //    allocates only out.
 //
+//  * bfloat16.  The storage type G (u, KS, MS, pscale and out in device
+//    memory) is separate from the compute type T: bfloat16 values are
+//    converted to float32 as they enter shared memory and registers, every
+//    contraction accumulates in FP32 FMA, and out rounds to bfloat16 once,
+//    to nearest, at the store.  Only device traffic halves; the staging is
+//    the float32 kernel's.  cp.async copies raw bytes of at least 4, and a
+//    bfloat16 plane row is only 2-byte aligned, so a bfloat16 plane is read
+//    into registers one plane step before it is converted and stored into
+//    its float32 ring slot, which keeps its loads in flight across that
+//    step's contractions.
+//
 // Plain FP32/FP64 FMA throughout; no TF32, no tensor cores.  Launches go on
 // the caller's stream and never synchronise; each entry point returns
 // cudaGetLastError() so a refused launch is reported to the wrapper.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstddef>
+#include <type_traits>
 
 namespace {
 
@@ -80,6 +95,23 @@ constexpr int kMaxThreads = 384;  // computing threads of a block (one y-tile of
 constexpr int kRowsLarge = 3;
 constexpr int kMaxBand = 8;
 constexpr int kMaxDevices = 64;
+
+// device-memory type G -> compute type: bfloat16 computes in float32
+template <typename G>
+struct Compute {
+  using T = G;
+};
+template <>
+struct Compute<__nv_bfloat16> {
+  using T = float;
+};
+
+__device__ __forceinline__ float to_compute(float v) { return v; }
+__device__ __forceinline__ double to_compute(double v) { return v; }
+__device__ __forceinline__ float to_compute(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store(float* d, float v) { *d = v; }
+__device__ __forceinline__ void store(double* d, double v) { *d = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* d, float v) { *d = __float2bfloat16_rn(v); }
 
 template <typename T>
 struct Traits;
@@ -209,11 +241,11 @@ __device__ __forceinline__ void yz_columns(const T* __restrict__ amn, const T* _
 // current input plane.  With kScatter, C and D of plane x go into all of
 // it; then out plane x - B, complete, is stored from acc[.][0] when `store`,
 // and the ring shifts by one plane.
-template <typename T, int B, int R, bool kScatter>
+template <typename T, typename G, int B, int R, bool kScatter>
 __device__ __forceinline__ void x_step(T (&acc)[R][2 * B + 1], const T (&C)[R],
                                        const T (&D)[R],
                                        const typename Traits<T>::T2* __restrict__ xcol,
-                                       bool store, T* __restrict__ dst, int S, int nvalid,
+                                       bool complete, G* __restrict__ dst, int S, int nvalid,
                                        T scale) {
   constexpr int W = 2 * B + 1;
   if constexpr (kScatter) {
@@ -224,10 +256,10 @@ __device__ __forceinline__ void x_step(T (&acc)[R][2 * B + 1], const T (&C)[R],
       for (int i = 0; i < R; ++i) acc[i][d] = fma(v.y, D[i], fma(v.x, C[i], acc[i][d]));
     }
   }
-  if (store) {
+  if (complete) {
 #pragma unroll
     for (int i = 0; i < R; ++i) {
-      if (i < nvalid) dst[i * S] = scale * acc[i][0];
+      if (i < nvalid) store(dst + i * S, scale * acc[i][0]);
     }
   }
 #pragma unroll
@@ -249,12 +281,15 @@ struct Geometry {
   int pitch_u, pitch_a;  // elements per u tile, per AM / AK buffer
 };
 
-template <typename T, int B, int R>
+template <typename G, int B, int R>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-    fused_stencil(const T* __restrict__ u, const T* __restrict__ KS,
-                  const T* __restrict__ MS, const T* __restrict__ pscale,
-                  T* __restrict__ out, const Geometry geo) {
+    fused_stencil(const G* __restrict__ u, const G* __restrict__ KS,
+                  const G* __restrict__ MS, const G* __restrict__ pscale,
+                  G* __restrict__ out, const Geometry geo) {
+  using T = typename Compute<G>::T;
   using T2 = typename Traits<T>::T2;
+  constexpr bool kAsync = std::is_same<G, T>::value;  // else bfloat16 via registers
+  constexpr int kPre = 4;  // rows of a bfloat16 plane a thread holds in registers
   constexpr int W = 2 * B + 1;
   constexpr int kStages = Traits<T>::kStages;
   // a thread's y coefficients live in registers for the whole slab where
@@ -300,8 +335,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     const int r = i / W;
     const int c = r - B + (i - r * W);
     const bool in = c >= 0 && c < S;
-    bc[i] = in ? T2{MS[r * S + c], KS[r * S + c]} : T2{T(0), T(0)};
-    xc[i] = in ? T2{KS[c * S + r], MS[c * S + r]} : T2{T(0), T(0)};
+    bc[i] = in ? T2{to_compute(MS[r * S + c]), to_compute(KS[r * S + c])} : T2{T(0), T(0)};
+    xc[i] = in ? T2{to_compute(KS[c * S + r]), to_compute(MS[c * S + r])} : T2{T(0), T(0)};
   }
   __syncthreads();
 
@@ -315,16 +350,45 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   // a row of SP values whose pads stay zero; this thread copies column zc of
   // rows cy, cy + nch, ... (neighbouring threads, neighbouring addresses)
   const int nch = blockDim.x / S;
-  const T* usrc = u + static_cast<size_t>(p) * SS * S + static_cast<size_t>(zr0) * S + zc;
+  const G* usrc = u + static_cast<size_t>(p) * SS * S + static_cast<size_t>(zr0) * S + zc;
   auto load_plane = [&](int n) {
-    const T* src = usrc + static_cast<size_t>(xi0 + n) * SS;
+    const G* src = usrc + static_cast<size_t>(xi0 + n) * SS;
     T* dst = ring + (n % kStages) * geo.pitch_u + B + zc;
     for (int r = cy; r < nzr; r += nch) cp_async<sizeof(T)>(dst + r * SP, src + r * S);
+  };
+  // bfloat16: fetch_plane reads this thread's first kPre rows of plane n
+  // into registers; put_plane stores them, converted, into the plane's slot,
+  // with any further rows read there and then
+  G pre[kPre];
+  auto fetch_plane = [&](int n) {
+    const G* src = usrc + static_cast<size_t>(xi0 + n) * SS;
+#pragma unroll
+    for (int k = 0; k < kPre; ++k) {
+      const int r = cy + k * nch;
+      if (r < nzr) pre[k] = src[r * S];
+    }
+  };
+  auto put_plane = [&](int n) {
+    const G* src = usrc + static_cast<size_t>(xi0 + n) * SS;
+    T* dst = ring + (n % kStages) * geo.pitch_u + B + zc;
+#pragma unroll
+    for (int k = 0; k < kPre; ++k) {
+      const int r = cy + k * nch;
+      if (r < nzr) dst[r * SP] = to_compute(pre[k]);
+    }
+    for (int r = cy + kPre * nch; r < nzr; r += nch) dst[r * SP] = to_compute(src[r * S]);
   };
 
 #pragma unroll 1
   for (int n = 0; n < kStages - 1; ++n) {
-    if (n < nplanes) load_plane(n);
+    if (n < nplanes) {
+      if constexpr (kAsync) {
+        load_plane(n);
+      } else {
+        fetch_plane(n);
+        put_plane(n);
+      }
+    }
     cp_async_commit();
   }
 
@@ -346,8 +410,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 #pragma unroll
     for (int d = 0; d < W; ++d) acc[i][d] = T(0);
   }
-  const T scale = pscale[p];
-  T* obase = out + static_cast<size_t>(p) * SS * S + static_cast<size_t>(yb) * S + zc;
+  const T scale = to_compute(pscale[p]);
+  G* obase = out + static_cast<size_t>(p) * SS * S + static_cast<size_t>(yb) * S + zc;
   // this thread's y window in AM / AK, and its fused z item's slots
   const int yoff = zc * P + cy * R;
   const int zoff_u = zc * SP + cy * R;
@@ -362,7 +426,14 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   for (int n = 0; n < nplanes; ++n) {
     cp_async_wait<kStages - 3>();
     __syncthreads();  // AM/AK of plane n and u of plane n + 1 are visible
-    if (n + kStages - 1 < nplanes) load_plane(n + kStages - 1);
+    const bool ahead = n + kStages - 1 < nplanes;
+    if (ahead) {
+      if constexpr (kAsync) {
+        load_plane(n + kStages - 1);
+      } else {
+        fetch_plane(n + kStages - 1);
+      }
+    }
     cp_async_commit();
     const int bn = (n & 1) * geo.pitch_a, bz = ((n + 1) & 1) * geo.pitch_a;
     T C[R], D[R];
@@ -381,8 +452,14 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     }
     const int x = xi0 + n, o = x - B;
     const bool store = o >= x0 && o < x1;
-    x_step<T, B, R, true>(acc, C, D, xc + x * W, store,
-                          store ? obase + static_cast<size_t>(o) * SS : nullptr, S, nvalid, scale);
+    x_step<T, G, B, R, true>(acc, C, D, xc + x * W, store,
+                             store ? obase + static_cast<size_t>(o) * SS : nullptr, S, nvalid,
+                             scale);
+    // slot (n - 1) % kStages was last read in step n - 2, and plane
+    // n + kStages - 1 is first read in step n + kStages - 2, after a barrier
+    if constexpr (!kAsync) {
+      if (ahead) put_plane(n + kStages - 1);
+    }
   }
   // planes past the patch's end contribute nothing: store the rest of the ring
   const T none[R] = {};
@@ -390,8 +467,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   for (int x = xi1; x < x1 + B; ++x) {
     const int o = x - B;
     const bool store = o >= x0 && o < x1;
-    x_step<T, B, R, false>(acc, none, none, nullptr, store,
-                        store ? obase + static_cast<size_t>(o) * SS : nullptr, S, nvalid, scale);
+    x_step<T, G, B, R, false>(acc, none, none, nullptr, store,
+                              store ? obase + static_cast<size_t>(o) * SS : nullptr, S, nvalid,
+                              scale);
   }
 }
 
@@ -474,9 +552,10 @@ Geometry make_geometry(int S, size_t max_smem) {
   return g;
 }
 
-template <typename T, int B, int R>
+template <typename G, int B, int R>
 int launch_rows(const void* u, const void* KS, const void* MS, const void* pscale, void* out,
                 int NP, int S, int device, void* stream) {
+  using T = typename Compute<G>::T;
   // geometry and occupancy depend on S only: computed once per S
   struct Cached {
     Geometry geo;
@@ -493,7 +572,7 @@ int launch_rows(const void* u, const void* KS, const void* MS, const void* pscal
       return static_cast<int>(cudaErrorInvalidValue);
     int occ = 0;
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &occ, fused_stencil<T, B, R>, c.threads, c.smem);
+        &occ, fused_stencil<G, B, R>, c.threads, c.smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (occ <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
     c.occ = occ;
@@ -513,10 +592,10 @@ int launch_rows(const void* u, const void* KS, const void* MS, const void* pscal
   }
   const long blocks = items * geo.nslab;
   if (blocks > 0x7fffffffL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  fused_stencil<T, B, R><<<static_cast<unsigned>(blocks), c.threads, c.smem,
+  fused_stencil<G, B, R><<<static_cast<unsigned>(blocks), c.threads, c.smem,
                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(u), static_cast<const T*>(KS), static_cast<const T*>(MS),
-      static_cast<const T*>(pscale), static_cast<T*>(out), geo);
+      static_cast<const G*>(u), static_cast<const G*>(KS), static_cast<const G*>(MS),
+      static_cast<const G*>(pscale), static_cast<G*>(out), geo);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -588,6 +667,8 @@ int patch_stencil_init(int device) {
   if (e != cudaSuccess) return static_cast<int>(e);
   e = opt_in_all<double>(optin);
   if (e != cudaSuccess) return static_cast<int>(e);
+  e = opt_in_all<__nv_bfloat16>(optin);
+  if (e != cudaSuccess) return static_cast<int>(e);
   g_smem_optin[device] = optin;
   g_nsm[device] = nsm;
   return 0;
@@ -603,6 +684,11 @@ int patch_stencil_f32(const void* u, const void* KS, const void* MS, const void*
 int patch_stencil_f64(const void* u, const void* KS, const void* MS, const void* pscale,
                       void* out, int NP, int S, int band, int device, void* stream) {
   return dispatch<double>(u, KS, MS, pscale, out, NP, S, band, device, stream);
+}
+
+int patch_stencil_bf16(const void* u, const void* KS, const void* MS, const void* pscale,
+                       void* out, int NP, int S, int band, int device, void* stream) {
+  return dispatch<__nv_bfloat16>(u, KS, MS, pscale, out, NP, S, band, device, stream);
 }
 
 const char* patch_stencil_error_string(int code) {

@@ -31,6 +31,13 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "patch_stencil.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
+#: the kernel's entry point per dtype (bfloat16: read and written in
+#: bfloat16, computed in float32)
+_ENTRY = {
+    torch.float32: "patch_stencil_f32",
+    torch.float64: "patch_stencil_f64",
+    torch.bfloat16: "patch_stencil_bf16",
+}
 #: half-widths the kernel is built for (one template instance each)
 BANDS = tuple(range(1, 9))
 NVCC_FLAGS = (
@@ -40,13 +47,20 @@ NVCC_FLAGS = (
 
 
 class LaunchCounter:
-    """Number of kernel launches; the wrapper adds one per launch."""
+    """Number of kernel launches, in all and per dtype (one per instance:
+    float32, float64, bfloat16); the wrapper adds one per launch."""
 
     def __init__(self) -> None:
         self.count = 0
+        self.per_dtype: dict = {}
 
     def reset(self) -> None:
         self.count = 0
+        self.per_dtype = {}
+
+    def add(self, dtype: torch.dtype) -> None:
+        self.count += 1
+        self.per_dtype[dtype] = self.per_dtype.get(dtype, 0) + 1
 
 
 #: launches of the CUDA kernel (the plain CPU path does not count)
@@ -104,7 +118,7 @@ class _Library:
                 if os.path.exists(tmp):
                     os.remove(tmp)
         lib = ctypes.CDLL(path)
-        for name in ("patch_stencil_f32", "patch_stencil_f64"):
+        for name in _ENTRY.values():
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -187,8 +201,8 @@ def _check(xp, KS, MS, pscale, band) -> int:
             raise ValueError(f"{name} is on {t.device}, xp on {xp.device}")
         if t.dtype != xp.dtype:
             raise ValueError(f"{name} is {t.dtype}, xp is {xp.dtype}")
-    if xp.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"patch stencil takes float32 or float64, got {xp.dtype}")
+    if xp.dtype not in _ENTRY:
+        raise ValueError(f"patch stencil takes float32, float64 or bfloat16, got {xp.dtype}")
     for name, t in (("xp", xp), ("KS", KS), ("MS", MS), ("pscale", pscale)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -217,12 +231,12 @@ def patch_stencil(
         return torch.empty_like(xp)
     device = xp.device.index or 0
     lib = library.for_device(device)
-    fn = lib.patch_stencil_f32 if xp.dtype == torch.float32 else lib.patch_stencil_f64
+    fn = getattr(lib, _ENTRY[xp.dtype])
     out = torch.empty_like(xp)
     err = fn(
         xp.data_ptr(), KS.data_ptr(), MS.data_ptr(), pscale.data_ptr(), out.data_ptr(),
         NP, S, band, device, torch.cuda.current_stream(xp.device).cuda_stream,
     )
     _raise_on(lib, err, "launch")
-    launches.count += 1
+    launches.add(xp.dtype)
     return out

@@ -227,6 +227,14 @@ class AMGPreconditioner:
         return out
 
 
+def factor_dtype(level_dtype: torch.dtype) -> torch.dtype:
+    """The dtype of a dense Cholesky factor (the direct coarse solve's, the
+    AMG's coarsest) under levels of ``level_dtype``: float32 under
+    bfloat16, whose triangular solves torch does not take; the level dtype
+    otherwise."""
+    return torch.float32 if level_dtype == torch.bfloat16 else level_dtype
+
+
 def _fence(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -355,14 +363,14 @@ def build_amg(
     Ad_d = torch.as_tensor(Ad, device=device)
     _fence(device)
     t_up = time.perf_counter()
-    # dense Cholesky on the device, in float64, kept in the level dtype.
+    # dense Cholesky on the device, in float64, kept in factor_dtype.
     # Rows that see the identity (Dirichlet and hanging DoFs) are singleton
     # aggregates on every level, so the coarsest matrix never falls below
     # their count (25,802 of the 283,109 rows of quadrant r=7 at p=1): too
     # large to factor on the host in reasonable time.
     chol64 = torch.linalg.cholesky(Ad_d)
     del Ad_d
-    chol = chol64.to(dtype)
+    chol = chol64.to(factor_dtype(dtype))
     del chol64
     _fence(device)
     seconds = {

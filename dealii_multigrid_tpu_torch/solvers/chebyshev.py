@@ -70,7 +70,9 @@ def estimate_eigenvalue_range(
         alphas.append(alpha)
         betas.append(beta)
         rzs.append(rz_new)
-    coeffs = torch.stack([torch.stack(v) for v in (alphas, betas, rzs)]).cpu().numpy()
+    # widened exactly on the host: NumPy has no bfloat16
+    coeffs = torch.stack([torch.stack(v) for v in (alphas, betas, rzs)])
+    coeffs = coeffs.to(device="cpu", dtype=torch.float64).numpy()
     sub = np.nonzero(np.abs(coeffs[2]) < torch.finfo(inv_diag.dtype).tiny)[0]
     k = int(sub[0]) + 1 if len(sub) else n_iterations
     return _extremes_from_cg_coefficients(coeffs[0, :k], coeffs[1, :k])

@@ -25,7 +25,7 @@ import torch
 from ..mesh.dof import Constraints, DoFHandler
 from ..ops import element
 from ..ops.operator import split_boundary_constraints
-from .amg import AMGPreconditioner, build_amg, build_amg_boomer
+from .amg import AMGPreconditioner, build_amg, build_amg_boomer, factor_dtype
 from .cg import cg_solve
 from .chebyshev import ChebyshevSmoother, estimate_eigenvalue_range
 
@@ -160,9 +160,11 @@ def make_direct_coarse_solver(
     dofh: DoFHandler, hanging: Constraints, dtype: torch.dtype, device: torch.device,
     to_idx=None, from_idx=None,
 ) -> DirectCoarseSolver:
-    """Dense Cholesky coarse solver (set-up on the host, apply on the device)."""
+    """Dense Cholesky coarse solver (set-up on the host, apply on the device).
+    Under bfloat16 levels the factor is float32 (the triangular solves take
+    no bfloat16); the apply casts b to it and x back."""
     A = assemble_sparse_matrix(dofh, hanging).toarray()
-    L = torch.as_tensor(np.linalg.cholesky(A), dtype=dtype, device=device)
+    L = torch.as_tensor(np.linalg.cholesky(A), dtype=factor_dtype(dtype), device=device)
     return DirectCoarseSolver(L, to_idx, from_idx)
 
 

@@ -24,7 +24,8 @@ class ConvergenceTable:
             self.new_row()
         self._current[key] = value
 
-    def _format(self, v) -> str:
+    @staticmethod
+    def _format(v) -> str:
         if isinstance(v, float):
             if v == 0:
                 return "0"

@@ -374,3 +374,49 @@ def test_convection_step_on_card_matches_cpu(cuda):
     assert T.is_cuda
     assert [h["iterations"] for h in hist] == [h["iterations"] for h in hist_c]
     assert float((T.cpu() - T_c).abs().max()) <= 1e-10
+
+
+# --- bfloat16 levels and the bfloat16 instance of the kernel ---
+
+
+@pytest.mark.parametrize("NP,S", MAIN_PATH_SHAPES)
+def test_bf16_kernel_is_one_rounding_of_float64(cuda, NP, S):
+    """The bfloat16 instance computes in float32 and rounds once: within
+    2^-8 |ref| + 1e-5 max|ref| of a float64 stencil of its own bfloat16
+    inputs, and within 2e-2 of max of the plain bfloat16 chain."""
+    args = [t.to(torch.bfloat16) for t in stencil_inputs(S, NP, torch.float32, cuda)]
+    before = dict(ps.launches.per_dtype)
+    got = ps.patch_stencil(*args, 4)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert ps.launches.per_dtype[torch.bfloat16] == before.get(torch.bfloat16, 0) + 1
+    ref64 = ps.patch_stencil_reference(*(t.double() for t in args))
+    err = (got.double() - ref64).abs()
+    assert bool(torch.all(err <= 2.0**-8 * ref64.abs() + 1e-5 * ref64.abs().max()))
+    plain = ps.patch_stencil_reference(*args).double()
+    assert float((got.double() - plain).abs().max()) <= 2e-2 * float(plain.abs().max())
+
+
+@pytest.mark.parametrize("mg_type,number", [
+    ("HMG-global", "float"), ("HMG-global", "double"), ("HPMG", "double"), ("HMG-local", "double"),
+])
+def test_bf16_solve_on_card_matches_cpu(cuda, monkeypatch, mg_type, number):
+    """The card's bfloat16 stencil rounds once, so it is held to the CPU run
+    whose stencil rounds once: HMG-local takes 4 there and on the card (and
+    in the JAX package so rounded, tests/test_torch_bf16_solve.py), 5 with
+    the CPU's plain chain."""
+    plain = ps.patch_stencil_reference
+
+    def rounded_once(xp, KS, MS, pscale):
+        if xp.dtype != torch.bfloat16:
+            return plain(xp, KS, MS, pscale)
+        return plain(*(t.double() for t in (xp, KS, MS, pscale))).to(torch.bfloat16)
+
+    prm = small_params(mg_type, 3, 4, number, "bfloat16")
+    res_gpu, _, levels = api.run(prm, cuda)
+    monkeypatch.setattr(ps, "patch_stencil_reference", rounded_once)
+    res_cpu, _, _ = api.run(prm, "cpu")
+    assert levels[-1].op.dtype == torch.bfloat16
+    assert res_gpu.converged and res_gpu.n_iterations == res_cpu.n_iterations
+    rel = (res_gpu.x.cpu().double() - res_cpu.x.double()).norm() / res_cpu.x.double().norm()
+    assert float(rel) <= 1e-5

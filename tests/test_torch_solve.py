@@ -89,7 +89,6 @@ def test_dim2_solves_on_the_gather_engine():
     "field,value,item",
     [
         ("n_shards", 2, "item 13"),
-        ("mg_number_type", "bfloat16", "item 6"),
     ],
 )
 def test_unported_configurations_name_their_roadmap_item(field, value, item):
@@ -97,6 +96,21 @@ def test_unported_configurations_name_their_roadmap_item(field, value, item):
     setattr(prm, field, value)
     with pytest.raises(NotImplementedError, match=item):
         tapi.run(prm, "cpu")
+
+
+def test_bfloat16_levels_solve_converges():
+    """bfloat16 levels (ROADMAP item 6, once refused) under a float outer
+    CG: the levels are bfloat16, the dense coarse factor float32, and the
+    solve converges in float's count."""
+    prm = params(TParams, 2, 2, "float")
+    prm.mg_number_type = "bfloat16"
+    res, _, levels = tapi.run(prm, "cpu")
+    ref, _, _ = tapi.run(params(TParams, 2, 2, "float"), "cpu")
+    assert all(lv.op.dtype == torch.bfloat16 for lv in levels)
+    assert res.mg.coarse_solve.L.dtype == torch.float32
+    assert res.converged and res.x.dtype == torch.float32
+    assert res.n_iterations == ref.n_iterations
+    assert res.true_residual <= res.guard_threshold
 
 
 def test_unported_coarse_type_raises():
