@@ -128,7 +128,24 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      y. the port's experiment runner (tools/run_experiment.py) on the card
         over small-scaling quadrant up to r=5 (12 rows) against
         results/small-scaling-quadrant-tpu-merged.txt: every row equal,
-        none failed, the card named in the artifact's header and rows;
+        none failed, the card named in the artifact's header and rows; and
+        over large_scaling_partitioning 8,1 up to r=4 (12 rows, NShards 8
+        and 1) against results/large-scaling-partitioning-virtual8.txt:
+        every row the record's count, each 8-rank row the record's
+        partition columns;
+     z. sharded solves through the port's launcher (parallel/launch.py),
+        every rank on cuda:0 over gloo (ranks sharing one card: correctness,
+        not a multi-GPU speed): z1, HMG-global r=7 p=4 float over 4 ranks,
+        3 repetitions: 3 iterations on every rank, the guard, x within 1e-5
+        of b's, each rank's stencil launches equal to its own levels'
+        count, the kernel against the plain version at every rank-local
+        (NP, S), per rank peak memory, set-up and the L7 ghost slots
+        imported per vmult below 10% of its owned slots; z3, two more
+        float32 solves on z1's hierarchy, x bit-equal; z2, the JAX
+        package's dryrun configuration (quadrant r=5 p=3, double, rtol
+        1e-10) over 8 ranks: HMG-global with the Morton default and with
+        CellWeightPolicy-2.0, HMG-local with per-level partitions, each
+        within 1e-12 of the one-rank card solve with equal counts;
   5. for every patch level of the b, d, f, h, i, k and x hierarchies (h and
      i through ``result.mg`` and ``result.ls_mg``): the kernel on the level's
      own KS, MS and pscale against the plain version, its time, launches
@@ -1373,6 +1390,151 @@ def phase_y(card: str, paths: dict) -> None:
     check(launches > 0, "phase y: the runner launched no stencil")
 
 
+PARTITIONING_RECORD = os.path.join("results", "large-scaling-partitioning-virtual8.txt")
+
+
+def phase_y_partitioning(card: str, paths: dict) -> None:
+    """The runner on large_scaling_partitioning 8,1 up to r=4 (12 rows: p in
+    {1, 4}, HMG-local, HMG-global and HMG-global FirstChildPolicy, each with
+    NShards 8 and 1) against the virtual-8-device record: every row the
+    record's count, none failed, and each NShards 8 row (8 ranks sharing the
+    card) the record's partition columns."""
+    from dealii_multigrid_tpu_torch.tools import run_experiment as rx
+
+    record = os.path.join(os.path.dirname(os.path.abspath(__file__)), PARTITIONING_RECORD)
+    with tempfile.TemporaryDirectory() as tmp:
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            sweep, launches = counted(lambda: rx.run_experiment(
+                "large_scaling_partitioning", ["8,1"], "cuda:0", os.path.join(tmp, "lsp.txt"),
+                max_ref=4, against=[record],
+            ))
+    paths["runner_partitioning_r4_parent"] = launches
+    for _, cfg, _, text in sweep.verdicts + sweep.partitions:
+        print(f"phase y: {cfg} {text}", flush=True)
+    n_part = sum(v == "equal" for _, _, v, _ in sweep.partitions)
+    print(f"phase y: seconds per row {[(nm, round(t, 1)) for nm, t in sweep.ran]}", flush=True)
+    print(f"phase y: large_scaling_partitioning 8,1: {len(sweep.ran)} ran in "
+          f"{sum(t for _, t in sweep.ran):.1f} s, {len(sweep.failed)} failed, "
+          f"{sweep.count('equal')} counts equal to {PARTITIONING_RECORD}, {n_part} of "
+          f"{len(sweep.partitions)} sharded rows' partitions equal; card {card}", flush=True)
+    check(len(sweep.ran) == 12 and not sweep.failed,
+          f"phase y: {len(sweep.ran)} partitioning rows ran, failed {sweep.failed}")
+    check(sweep.count("equal") == 12, "phase y: a partitioning row's count is not the record's")
+    check(len(sweep.partitions) == 6 and n_part == 6,
+          "phase y: a sharded row's partition columns are not the record's")
+
+
+SHARDED_TARGET = "dealii_multigrid_tpu_torch.parallel.sharding:run_cases"
+
+
+def rank_expected_launches(info: dict, prm) -> int:
+    """Stencil launches one rank of a sharded HMG-global solve implies, from
+    its own levels (``gc_entries`` on the rank's operators: a sharded level
+    launches on the rank's NP / D patches, a replicated one on all)."""
+    deg = prm.mg_data.smoother.degree
+    eig = prm.mg_data.smoother.eig_cg_n_iterations
+    lv = info["levels"]
+    live = [l for l in range(1, len(lv)) if lv[l]["NP"] > 0]
+    per_it = sum(2 * deg + (1 if l == len(lv) - 1 else 0) for l in live)
+    n = sum(info["solve_iterations"]) * per_it + eig * len(live)
+    return n + (1 if lv[-1]["NP"] > 0 else 0)
+
+
+def check_rank_kernels(name: str, ranks: list, rng) -> list:
+    """The kernel against its plain version at every rank-local (NP, S) of a
+    sharded path, on the rank's own KS, MS and pscale (float32); returns
+    the distinct shapes."""
+    from dealii_multigrid_tpu_torch.ops import patch_stencil as ps
+
+    shapes = {}
+    for info in ranks:
+        for lv in info["levels"]:
+            if lv["NP"] > 0:
+                shapes.setdefault((lv["NP"], lv["S"], lv["band"]), lv)
+    for (NP, S, band), lv in sorted(shapes.items()):
+        KS, MS, sc = (lv[k].to("cuda", torch.float32).contiguous() for k in ("KS", "MS", "pscale"))
+        xp = torch.as_tensor(rng.standard_normal((NP, S**3)), dtype=torch.float32, device="cuda")
+        got = ps.patch_stencil(xp, KS, MS, sc, band)
+        ref = ps.patch_stencil_reference(xp, KS, MS, sc)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        rmax = float(ref.abs().max())
+        ok = bool(torch.all((got - ref).abs() <= F32_ATOL_REL * rmax + F32_RTOL * ref.abs()))
+        print(f"{name} rank-local kernel check f32 NP={NP} S={S} band={band}: "
+              f"max_abs_err={err:.3e} max|ref|={rmax:.3e} ok={ok}", flush=True)
+        check(ok, f"{name}: the kernel disagrees with the plain version at NP={NP} S={S}")
+    return sorted(shapes)
+
+
+def phase_z(card: str, paths: dict, x_b: torch.Tensor, rng) -> None:
+    """Sharded solves through the port's launcher, every rank on cuda:0
+    (ranks sharing one card talk over gloo; nothing here is a multi-GPU
+    speed).
+
+    z1 (and z3): the main path, HMG-global quadrant r=7 p=4 float over 4
+    ranks, 3 repetitions, then two more solves on the same hierarchy: 3
+    iterations on every rank, the guard, x within 1e-5 of phase b's, each
+    rank's stencil launches equal to its own levels' count, the kernel at
+    every rank-local shape, per rank its peak memory, set-up and the L7
+    ghost slots imported per vmult below 10% of the owned slots; z3: the
+    three float32 solves' x bit for bit equal on every rank.
+    z2: the JAX package's dryrun configuration (quadrant r=5 p=3, double,
+    rtol 1e-10, coarse amg, sharding.py:295-467) over 8 ranks: HMG-global
+    with the Morton default partition and with CellWeightPolicy-2.0
+    (Gaussian right-hand side), HMG-local with per-level partitions; each
+    within 1e-12 of the one-rank card solve with equal counts."""
+    from dealii_multigrid_tpu_torch.parallel import sharding
+    from dealii_multigrid_tpu_torch.parallel.launch import launch
+
+    prm = bench_params(7, 4, "float", 3)
+    t0 = time.perf_counter()
+    out = launch(SHARDED_TARGET, [{"params": prm, "repeat": 2}], 4, "cuda", timeout=900)
+    z1 = out[0]
+    wall = time.perf_counter() - t0
+    ranks = z1["ranks"]
+    print(f"z1: HMG-global r=7 p=4 float over {len(ranks)} ranks, backend "
+          f"{ranks[0]['backend']}, devices {[r['device'] for r in ranks]}; wall {wall:.1f} s; "
+          f"card {card}", flush=True)
+    check(all(r["backend"] == "gloo" and r["device"] == "cuda:0" for r in ranks),
+          "z1: a rank is not on cuda:0 over gloo")
+    check(z1["converged"] and z1["true_residual"] <= z1["guard_threshold"], "z1: converged / guard")
+    rel_b = float(np.linalg.norm(z1["x"] - x_b.double().numpy()) / np.linalg.norm(x_b.double().numpy()))
+    print(f"z1: solve iterations {z1['solve_iterations']}, x vs phase b {rel_b:.3e}, true residual "
+          f"{z1['true_residual']:.4e} (allowance {z1['guard_threshold']:.4e})", flush=True)
+    check(rel_b <= 1e-5, f"z1: x differs from phase b's by {rel_b:.3e}")
+    for info in ranks:
+        expect = rank_expected_launches(info, prm)
+        fine = info["levels"][-1]
+        share = fine["ghosts"] / fine["owned"]
+        paths[f"sharded_hmg_global_r7_float_rank{info['rank']}"] = info["launches"]
+        print(f"z1 rank {info['rank']}: solve iterations {info['solve_iterations']}, stencil "
+              f"launches {info['launches']} (expected {expect}), levels (NP, S, shards) "
+              f"{[(l['NP'], l['S'], l['n_shards']) for l in info['levels']]}, set-up "
+              f"{info['setup_time']:.1f} s, peak mem {info['peak_gib']:.2f} GiB, L7 owned slots "
+              f"{fine['owned']}, ghost slots imported per vmult {fine['ghosts']} "
+              f"({100 * share:.2f}%); card {card}", flush=True)
+        check(all(n == 3 for n in info["solve_iterations"]), f"z1 rank {info['rank']}: not 3 iterations")
+        check(info["launches"] == expect, f"z1 rank {info['rank']}: launches {info['launches']} != {expect}")
+        check(share < 0.10, f"z1 rank {info['rank']}: ghosts {100 * share:.2f}% of owned on L7")
+    check_rank_kernels("z1", ranks, rng)
+    print(f"z3: three float32 sharded solves bit-equal: {z1['repeat_equal']}", flush=True)
+    check(z1["repeat_equal"] is True, "z3: the float32 sharded solves are not bit-repeatable")
+    del out, z1
+
+    t0 = time.perf_counter()
+    # both of the JAX package's dryruns in one launch of 8 ranks
+    rows = sharding.dryrun(sharding.dryrun_configurations(), 8)
+    wall = time.perf_counter() - t0
+    for p, rel, it_sharded, it_one in rows:
+        name = f"z2 {p.type} {p.policy_name or 'Morton default'}"
+        print(f"{name}: 8 ranks {it_sharded} iterations, one rank {it_one}; x vs one rank "
+              f"{rel:.3e} (JAX measured 8.652e-16, MULTICHIP_r05.json); card {card}", flush=True)
+        check(it_sharded == it_one, f"{name}: counts {it_sharded} != {it_one}")
+        check(rel <= 1e-12, f"{name}: x differs from the one-rank card solve by {rel:.3e}")
+    print(f"z2: 8 ranks, three solves in one launch: wall {wall:.1f} s; card {card}", flush=True)
+
+
 def new_phases(dev, card: str, done: set, n_ref_2d: int) -> dict:
     """Phases q, r, s, t, in that order (phase p runs inside b, d and r)."""
     phase_q(dev, card)
@@ -1465,6 +1627,8 @@ def main() -> int:
               f"bound {1e3 * b_ms:.2f} us ({b_by}), roofline share {b_ms / ms:.4f}; card {card}",
               flush=True)
     print(f"stencil per solve: {total:.4f} ms of kernel time; card {card}", flush=True)
+    # phase z holds its sharded solve to this x
+    x_b = result.x.detach().cpu()
     # release every reference to the hierarchy: the next phases' peaks
     # must not include it
     del result, _problem, levels, entries, op
@@ -1809,6 +1973,11 @@ def main() -> int:
     check(done == set(P_SITES) | set(P_SITES_BF16), f"phase p covered {sorted(done)}")
     stamp("y")
     phase_y(card, paths)
+    phase_y_partitioning(card, paths)
+
+    stamp("z")
+    # 4z. sharded solves: ranks sharing the card over gloo
+    phase_z(card, paths, x_b, rng)
 
     stamp("result lines")
     # result lines: one entry per instance of the kernel, each with the

@@ -13,8 +13,9 @@ float, double, mixed (float64 vectors around float32 levels) or df32
 (double-single float32 pairs, solvers/twofloat.py, hybrid engine only)
 around levels of MGNumberType float, double or bfloat16 (the bfloat16
 levels' dense coarse factors are float32), and timings are fenced with
-``torch.cuda.synchronize()``.  Sharded solves are not ported yet and raise
-NotImplementedError naming their ROADMAP item.
+``torch.cuda.synchronize()``.  With ``n_shards`` > 1 the 3D multigrid
+types run domain-decomposed over ``torch.distributed`` ranks, each rank on
+its part of every level (parallel/sharding.py, ``dispatch_solve``).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from .ops.hybrid_format import (
     HybridFormat,
     build_hybrid_format,
     cell_slot_table,
+    repartition_format,
     sanitizer_enabled,
     verify_format,
 )
@@ -93,7 +95,10 @@ class MixedPrecisionOperator:
         return self.op.vmult(x.to(self.op.dtype)).to(torch.float64)
 
     def dot(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        return torch.sum(x * self.owner.to(x.dtype) * y)
+        return self.op.allsum(torch.sum(x * self.owner.to(x.dtype) * y))
+
+    def allsum(self, partial: torch.Tensor) -> torch.Tensor:
+        return self.op.allsum(partial)
 
 
 @dataclass
@@ -218,25 +223,34 @@ class HybridLevel:
     to_global_idx: torch.Tensor     # [n_dofs] representative slot per dof
 
     def to_global(self, flat: torch.Tensor) -> torch.Tensor:
-        return flat[self.to_global_idx]
+        """The level's slot vector (a rank's span on a sharded level) -> the
+        global DoF vector."""
+        return self.op.gather(flat)[self.to_global_idx]
 
 
 def build_level_hybrid(
     mesh: AdaptiveMesh, degree: int, device: torch.device, dtype: torch.dtype,
-    K: int = 8,
+    K: int = 8, n_shards: int = 1, cell_shard: np.ndarray | None = None,
 ) -> HybridLevel:
+    """One hybrid level; with ``n_shards`` > 1 (or a ``cell_shard`` map) in
+    the device-major layout, and this rank's part of it (parallel/
+    sharding.py): its operator, diagonal and start vector cover the rank's
+    span."""
     dofh = distribute_dofs(mesh, degree)
     hanging = make_hanging_node_constraints(dofh)
     fmt = build_hybrid_format(dofh, K=K)
+    if n_shards > 1 or cell_shard is not None:
+        fmt = repartition_format(fmt, n_shards, cell_shard)
     if sanitizer_enabled():
         verify_format(fmt)
     op = make_hybrid_operator(fmt, hanging, device, dtype)
     diag = compute_diagonal(dofh, hanging)
 
     def dev(a):
-        return torch.as_tensor(a, dtype=dtype, device=device)
+        return torch.as_tensor(op.own(a), dtype=dtype, device=device)
 
-    # the reference draws the eigenvalue start vector the same way (seed 42)
+    # the reference draws the eigenvalue start vector the same way (seed 42),
+    # over the global DoFs, so every rank count starts from the same vector
     rng = np.random.default_rng(42)
     return HybridLevel(
         mesh=mesh,
@@ -263,6 +277,11 @@ def _hybrid_coarse_solver(kind: str, level: HybridLevel, mg_data: MultigridParam
             to_idx=level.to_global_idx, from_idx=level.from_global_idx,
             flavor="boomer" if kind == "amg_petsc" else "sa",
         )
+        if level.fmt.n_shards > 1:
+            # a sharded coarse level: every rank solves the gathered vector
+            from .parallel.sharding import GatheredSolve
+
+            alg = GatheredSolve(alg, op)
         if kind != "cg_with_amg":
             return alg
         prec = alg
@@ -350,6 +369,11 @@ class MGSolveResult:
     # iteration, both from the one instrumented solve after the timed ones
     phases: dict | None = None
     phase_iteration_time: float | None = None
+    # the domain decomposition (parallel/sharding.py): ranks, the cell->rank
+    # map applied per level (None: replicated), ranks of the coarsest level
+    n_shards: int = 1
+    partitions: list | None = None
+    sub_comm_size: int = 1
 
 
 def _fence(device: torch.device) -> None:
@@ -386,13 +410,15 @@ def mg_solve(
     force = mg_data.cg_parameter_study.maxiter if mg_data.do_parameter_study else None
     df32 = isinstance(rhs, twofloat.TF)
     device = (rhs.hi if df32 else rhs).device
+    # the sum over ranks of a sharded fine level (identity on one device)
+    allsum = getattr(fine_op, "allsum", None)
 
     def solve(precond=preconditioner):
         if df32:
             return twofloat.cg_solve_df32(
                 fine_op.vmult, rhs, preconditioner=precond.vmult,
                 maxiter=ctrl.maxiter, abstol=ctrl.abstol, reltol=ctrl.reltol,
-                force_iterations=force, weight=fine_op.owner,
+                force_iterations=force, weight=fine_op.owner, allsum=allsum,
             )
         return cg_solve(
             fine_op.vmult, rhs, preconditioner=precond.vmult,
@@ -419,7 +445,7 @@ def mg_solve(
     if df32:
         ax = fine_op.vmult(twofloat.tf_round(res.x))
         r = twofloat.tf_axpy_f32(-1.0, ax, rhs)
-        true_res = float(twofloat.tf_norm(r, fine_op.owner))
+        true_res = float(twofloat.tf_norm(r, fine_op.owner, allsum))
     else:
         r = rhs - fine_op.vmult(res.x)
         true_res = float(torch.sqrt(fine_op.dot(r, r)))
@@ -527,9 +553,18 @@ def solve_with_global_coarsening_hybrid(
         fine_mesh, params.min_level, params.min_n_cells
     )
     plan = gc_level_plan(params.type, tri_seq, params.fe_degree_fine)
-    levels = [
-        build_level_hybrid(mesh, degree, device, level_dtype) for mesh, degree in plan
-    ]
+    n_shards, partitions = params.n_shards, None
+    if n_shards > 1:
+        # this rank's part of each level (parallel/sharding.py)
+        from .parallel.sharding import build_sharded_hybrid_levels
+
+        levels, partitions = build_sharded_hybrid_levels(
+            plan, level_dtype, device, n_shards, params.effective_policy_name()
+        )
+    else:
+        levels = [
+            build_level_hybrid(mesh, degree, device, level_dtype) for mesh, degree in plan
+        ]
     outer_op, rhs, problem = _outer_problem(params, levels[-1], device)
     mg = build_gc_preconditioner_hybrid(levels, params.mg_data)
     result = _timed_solve(
@@ -537,6 +572,9 @@ def solve_with_global_coarsening_hybrid(
         t_setup,
     )
     result.mg = mg
+    result.n_shards, result.partitions = max(n_shards, 1), partitions
+    # the sub-communicator analog: ranks of the coarsest level
+    result.sub_comm_size = levels[0].fmt.n_shards
     return result, problem, levels
 
 
@@ -571,11 +609,20 @@ def solve_with_local_smoothing_hybrid(
     level_dtype = number_dtype(params.mg_number_type)
     p = params.fe_degree_fine
     min_level = max(params.min_level, 0)
-    fine = build_level_hybrid(fine_mesh, p, device, level_dtype)
+    n_shards = params.n_shards
+    # the active mesh's levels: sharded by the granularity rule (JAX: the
+    # fine level and HPMG-local's p-levels share one shard count)
+    D = 1
+    if n_shards > 1:
+        from .parallel.sharding import hybrid_level_shard_count
+
+        D = hybrid_level_shard_count(fine_mesh.n_cells, n_shards)
+    fine = build_level_hybrid(fine_mesh, p, device, level_dtype, n_shards=D)
     outer_op, rhs, problem = _outer_problem(params, fine, device)
     if params.type == "HMG-local":
         lsmg = build_local_smoothing_mg_hybrid(
-            fine.dofh, fine.fmt, params.mg_data, device, level_dtype, min_level
+            fine.dofh, fine.fmt, params.mg_data, device, level_dtype, min_level,
+            n_shards=n_shards,
         )
         precond = PreconditionLS(lsmg, fine.op.constrained_keep, outer_dtype)
         mg = None
@@ -583,12 +630,12 @@ def solve_with_local_smoothing_hybrid(
     else:
         degrees = polynomial_coarsening_sequence(p, "bisect")
         plevels = [
-            fine if d == p else build_level_hybrid(fine_mesh, d, device, level_dtype)
+            fine if d == p else build_level_hybrid(fine_mesh, d, device, level_dtype, n_shards=D)
             for d in degrees
         ]
         lsmg = build_local_smoothing_mg_hybrid(
             plevels[0].dofh, plevels[0].fmt, params.mg_data, device, level_dtype,
-            min_level,
+            min_level, n_shards=n_shards,
         )
         ls_precond = PreconditionLS(lsmg, plevels[0].op.constrained_keep, level_dtype)
         mg = build_gc_preconditioner_hybrid(plevels, params.mg_data, coarse_solve=ls_precond)
@@ -596,6 +643,10 @@ def solve_with_local_smoothing_hybrid(
         n_levels = len(degrees) + len(lsmg.levels) - 1
     result = _timed_solve(params, fine, outer_op, rhs, precond, n_levels, t_setup)
     result.mg, result.ls_mg = mg, lsmg
+    result.n_shards = max(n_shards, 1)
+    # per level mesh (CLI statistics); None unsharded
+    result.partitions = list(lsmg.partitions) if n_shards > 1 else None
+    result.sub_comm_size = lsmg.levels[0].fmt.n_shards
     return result, problem, [fine]
 
 
@@ -729,7 +780,8 @@ def solve_with_amg(params: RunParameters, fine_mesh: AdaptiveMesh, device: torch
 def run(params: RunParameters, device: str | torch.device | None = None):
     """Reference run<dim, ...>() equivalent: build the mesh, dispatch the
     solver (multigrid_throughput.cc:2019-2396).  ``device`` None means the
-    card; a CPU run passes ``"cpu"``."""
+    card; a CPU run passes ``"cpu"``.  ``params.n_shards`` > 1 runs the 3D
+    multigrid types domain-decomposed over that many ranks (dispatch_solve)."""
     device = resolve_device(device)
     mesh = generators.create(
         params.geometry_type, params.dim, params.n_ref_global, params.n_ref_local
@@ -737,13 +789,49 @@ def run(params: RunParameters, device: str | torch.device | None = None):
     return dispatch_solve(params, mesh, device)
 
 
+def shard_count(params: RunParameters, device: torch.device) -> int:
+    """Ranks of a solve: ``params.n_shards``; 0 means the initialized
+    process group's world size, or else the number of cards (1 on the
+    CPU)."""
+    import torch.distributed as dist
+
+    if params.n_shards != 0:
+        return params.n_shards
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return max(torch.cuda.device_count(), 1) if device.type == "cuda" else 1
+
+
 def dispatch_solve(params: RunParameters, mesh: AdaptiveMesh, device: str | torch.device | None):
     """The reference's solver-type switch (multigrid_throughput.cc:2337-2353):
-    3D multigrid on the hybrid patch engine, 2D on the gather engine."""
+    3D multigrid on the hybrid patch engine, 2D on the gather engine.
+
+    With more than one shard the 3D multigrid types run domain-decomposed
+    (parallel/sharding.py): under an initialized process group of that
+    world size (``torchrun``) as this rank; otherwise the ranks are started
+    here (parallel/launch.py) and rank 0's result comes back, x in the
+    global DoF layout.  As in the JAX package, the 2D gather engine and
+    AMG / AMGPETSc run unsharded and report ``n_shards`` 1."""
+    import dataclasses
+
+    import torch.distributed as dist
+
     device = resolve_device(device)
-    if params.n_shards not in (0, 1):
-        raise NotImplementedError(
-            "sharded solves are not ported yet (ROADMAP item 13, multi-device)"
+    n = shard_count(params, device)
+    sharded = n > 1 and params.dim == 3 and params.type in _HYBRID_TYPES
+    params = dataclasses.replace(params, n_shards=n if sharded else 1)
+    if sharded and not (dist.is_available() and dist.is_initialized()):
+        from .parallel.launch import launch
+
+        out = launch(
+            "dealii_multigrid_tpu_torch.api:rank_solve", (params, mesh), n,
+            "cpu" if device.type == "cpu" else "cuda",
+        )
+        return _from_rank(out, device)
+    if sharded and dist.get_world_size() != n:
+        raise ValueError(
+            f"n_shards {n} differs from the process group's world size "
+            f"{dist.get_world_size()}"
         )
     if params.type in ("AMG", "AMGPETSc"):
         return solve_with_amg(params, mesh, device)
@@ -754,3 +842,49 @@ def dispatch_solve(params: RunParameters, mesh: AdaptiveMesh, device: str | torc
     if params.type in ("HMG-local", "HPMG-local"):
         return solve_with_local_smoothing(params, mesh, device)
     raise ValueError(f"unknown solver type {params.type!r}")
+
+
+_HYBRID_TYPES = ("HMG-global", "PMG", "HPMG", "HMG-local", "HPMG-local")
+
+
+@dataclass
+class LevelMesh:
+    """What a launched run returns of each level: its mesh and degree."""
+
+    mesh: AdaptiveMesh
+    degree: int
+
+
+def rank_solve(payload, device: torch.device):
+    """One rank of a launched solve (parallel/launch.py): the solve under the
+    group, then rank 0's result with its tensors on the CPU and without the
+    device hierarchy (which holds this rank's part only)."""
+    params, mesh = payload
+    result, problem, levels = dispatch_solve(params, mesh, device)
+    return _to_host(result, problem, levels)
+
+
+def _to_host(result, problem, levels):
+    import dataclasses
+
+    def cpu(t):
+        return t.cpu() if isinstance(t, torch.Tensor) else t
+
+    res = dataclasses.replace(
+        result, x=cpu(result.x), rhs_used=None, mg=None, ls_mg=None, amg=None
+    )
+    prob = dataclasses.replace(problem, rhs=cpu(problem.rhs))
+    levels = [LevelMesh(lv.mesh, lv.degree) for lv in levels]
+    for m in [prob.dofh.mesh] + [lv.mesh for lv in levels]:
+        # a host lookup cache (a closure) that does not pickle
+        m.__dict__.pop("_mgtpu_active_lookup", None)
+    return res, prob, levels
+
+
+def _from_rank(out, device: torch.device):
+    import dataclasses
+
+    res, prob, levels = out
+    res = dataclasses.replace(res, x=res.x.to(device))
+    prob = dataclasses.replace(prob, rhs=prob.rhs.to(device))
+    return res, prob, levels

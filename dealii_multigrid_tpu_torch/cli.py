@@ -6,11 +6,18 @@ Mirror of the reference executable's main() (multigrid_throughput.cc:2398-2470):
 parse each JSON parameter file, run it, append one row to a cumulative
 ConvergenceTable printed after every run.  Without ``--device`` the runs go
 to ``cuda:0`` and fail without a card.
+
+Under ``torchrun --nproc-per-node N`` (``WORLD_SIZE`` above 1) every process
+joins one gloo group and runs each file as its rank of a sharded solve
+(``NShards`` N, or 0 for the group's size); rank 0 prints.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import os
 import sys
 
 import numpy as np
@@ -96,7 +103,8 @@ def run_config(params: RunParameters, table: ConvergenceTable, device: torch.dev
 
     table.add_value("n_dofs", result.n_dofs)
     table.add_value("n_levels", result.n_levels)
-    table.add_value("sub_comm_size", 1)  # one device
+    # the sub-communicator analog: ranks of the coarsest level
+    table.add_value("sub_comm_size", result.sub_comm_size)
     table.add_value("n_iterations", result.n_iterations)
     table.add_value("converged", result.converged)
     table.add_value("time", result.time)
@@ -116,7 +124,8 @@ def run_config(params: RunParameters, table: ConvergenceTable, device: torch.dev
             table.add_value(f"time_{ph}", phases[ph])
         table.add_value("time_to_mg", phases["to_mg"])
         table.add_value("time_to_global", phases["to_global"])
-        if params.verbose:
+        # (a launched sharded run's hierarchy stays with its ranks: no table)
+        if params.verbose and _phase_precond(result, params) is not None:
             # reference-shaped per-level phase matrix
             # (multigrid_throughput.cc:1285-1379), each phase in loops of
             # its own
@@ -143,9 +152,17 @@ def run_config(params: RunParameters, table: ConvergenceTable, device: torch.dev
             ]
         else:
             meshes = [lv.mesh for lv in levels]
-        n_shards = 1  # one device
-        partitions = None
-        if params.effective_policy_name():
+        # the ranks and partitions of the run (an unsharded run has 1 shard)
+        n_shards = result.n_shards
+        partitions = result.partitions
+        if partitions is not None:
+            # the partitions actually applied: a replicated level owns
+            # everything on rank 0 (the sub-communicator analog)
+            partitions = [
+                p if p is not None else np.zeros(m.n_cells, np.int32)
+                for p, m in zip(partitions, meshes)
+            ]
+        elif params.effective_policy_name():
             partitions = partition_hierarchy(
                 params.effective_policy_name(), meshes, n_shards, problem.dofh
             )
@@ -160,6 +177,19 @@ def run_config(params: RunParameters, table: ConvergenceTable, device: torch.dev
     if params.simulation_type == "Gaussian":
         u = problem.full_solution(result.x)
         table.add_value("l2_error", float(poisson.l2_error(problem, u)))
+
+
+def _join_torchrun_group(device: torch.device) -> bool:
+    """Under torchrun: join the gloo group (its address from the launcher's
+    environment); True on a rank other than 0, which prints nothing."""
+    import torch.distributed as dist
+
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or dist.is_initialized():
+        return False
+    if device.type == "cpu":
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo")
+    return dist.get_rank() != 0
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -182,10 +212,17 @@ def main(argv: list[str] | None = None) -> int:
     try:
         configs = [RunParameters.parse(path) for path in args.configs]
         device = resolve_device(args.device)
-        print(f"device: {describe_device(device)}")
-        for params in configs:
-            run_config(params, table, device)
-            table.write_text()
+        quiet = _join_torchrun_group(device)
+        if quiet:
+            from .parallel.launch import rank_device
+
+            device = rank_device(device.type, int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]))
+        out = contextlib.redirect_stdout(io.StringIO()) if quiet else contextlib.nullcontext()
+        with out:
+            print(f"device: {describe_device(device)}")
+            for params in configs:
+                run_config(params, table, device)
+                table.write_text()
     except Exception as exc:  # noqa: BLE001
         print(f"error: {type(exc).__name__}: {exc}", file=sys.stderr)
         return 1

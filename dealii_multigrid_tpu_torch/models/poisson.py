@@ -188,16 +188,16 @@ def assemble_problem_hybrid(
     b_cell = torch.matmul(rhs_fn(pts) * jxw, B3_d)               # [nc, nloc]
     # the cell-to-slot targets repeat inside a patch: the host sums them in
     # float64 in one fixed order (index_add_ on the card would not)
-    raw = dev(np.bincount(
-        cell_slots.reshape(-1), weights=b_cell.reshape(-1).cpu().numpy(), minlength=hop.n_slots
-    ))
+    # (a rank of a sharded level keeps its span: hop.own)
+    raw = dev(hop.own(np.bincount(
+        cell_slots.reshape(-1), weights=b_cell.reshape(-1).cpu().numpy(), minlength=fmt.n_slots
+    )))
     del b_cell
     if np.any(x0):
-        raw = raw - hop.cell_apply_raw(dev(fmt.from_global(x0)))
+        raw = raw - hop.cell_apply_raw(dev(hop.own(fmt.from_global(x0))))
     r = hop.apply_ct_faces(raw)
     r = hop.exchange(r)
     r = hop.apply_ct(r)
     rhs_slots = r * hop.constrained_keep
-    rep = torch.as_tensor(fmt.rep_slot, dtype=torch.int64, device=device)
-    problem = PoissonProblem(dofh, rhs_slots[rep], x0, exact_fn, hang)
+    problem = PoissonProblem(dofh, hop.to_global(rhs_slots), x0, exact_fn, hang)
     return problem, rhs_slots

@@ -152,6 +152,24 @@ class HybridOperator:
         """Ownership-masked dot: each global DoF counted once."""
         return torch.sum(x * self.owner * y)
 
+    # ------------------------------------ one device (a rank's span: hybrid_rank.py)
+    def own(self, a):
+        """This device's part of a host array in the level's slot layout."""
+        return a
+
+    def allsum(self, partial: torch.Tensor) -> torch.Tensor:
+        """The sum of ``partial`` over the devices sharing the level."""
+        return partial
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole slot vector."""
+        return x
+
+    def to_global(self, x: torch.Tensor) -> torch.Tensor:
+        """Slot vector -> global DoF vector (one representative slot each)."""
+        rep = torch.as_tensor(self.fmt.rep_slot, dtype=torch.int64, device=x.device)
+        return x[rep]
+
     # -------------------------------------------------------- constraints
     def apply_c(self, x: torch.Tensor) -> torch.Tensor:
         x = x * self.dirichlet_keep
@@ -369,10 +387,16 @@ def _last_writers(idx: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def make_hybrid_operator(fmt, hanging, device, dtype) -> HybridOperator:
-    """Host tables (hybrid_format.hybrid_operator_tables) -> device operator."""
+    """Host tables (hybrid_format.hybrid_operator_tables) -> device operator;
+    on a device-major level (``fmt.n_shards`` > 1) this rank's part of it
+    (ops/hybrid_rank.py), under the initialized process group."""
     from .hybrid_format import hybrid_operator_tables
 
     tables, meta = hybrid_operator_tables(fmt, hanging)
+    if fmt.n_shards > 1:
+        from .hybrid_rank import RankHybridOperator
+
+        return RankHybridOperator.build(tables, meta, fmt, device, dtype)
     op = HybridOperator.from_arrays(tables, meta, device, dtype)
     op.fmt = fmt
     return op

@@ -36,9 +36,15 @@ def _assembled_1d(mat: np.ndarray, K: int, degree: int) -> np.ndarray:
 class HybridFormat:
     """Host-side description of the hybrid slot layout for one level.
 
-    The flat slot vector is the patch bucket ``[NP, S, S, S]`` followed by
-    the singleton bucket ``[NS, nloc]`` (the reference's single-device
-    layout; its device-major multi-device layout is not ported).
+    DEVICE-MAJOR layout (n_shards = D >= 1): patch and singleton counts are
+    padded to multiples of D (dummy patches have level -1, dummy singletons
+    cell id -1, and their slots carry the sentinel dof id n_dofs).  The flat
+    slot vector is the concatenation of D equal spans, each holding that
+    shard's patches followed by its singletons, so an even block partition
+    of the flat axis puts whole patches on ranks (the Morton-block
+    partition, the analog of p4est's space-filling-curve partition).  D = 1
+    is the plain single-device layout: the patch bucket ``[NP, S, S, S]``
+    followed by the singleton bucket ``[NS, nloc]``.
     """
 
     dofh: DoFHandler
@@ -62,6 +68,7 @@ class HybridFormat:
     irr_slots: np.ndarray        # [G, Kg] slot ids (pad: n_slots)
     irr_out_slots: np.ndarray    # [W] slots to overwrite
     irr_out_group: np.ndarray    # [W] group index per overwrite target
+    n_shards: int = 1
     # patch<->singleton conforming interfaces, per (geometric axis g, patch
     # face side): entry 2g+side_p is None or (pidx, b1, b2, sidx) — the
     # singleton sidx's (g, 1-side_p) face coincides with the n1 x n1 subblock
@@ -85,13 +92,35 @@ class HybridFormat:
     def patch_slots(self) -> int:
         return self.n_patches * self.S**3
 
+    # ---- device-major layout geometry ----
+    @property
+    def patches_per_shard(self) -> int:
+        return self.n_patches // self.n_shards
+
+    @property
+    def singles_per_shard(self) -> int:
+        return self.n_singles // self.n_shards
+
+    @property
+    def shard_span(self) -> int:
+        return (
+            self.patches_per_shard * self.S**3
+            + self.singles_per_shard * self.dofh.n_loc
+        )
+
     def patch_slot_base(self, i):
         """First flat slot of patch i (vectorised)."""
-        return i * self.S**3
+        pps = max(self.patches_per_shard, 1)
+        return (i // pps) * self.shard_span + (i % pps) * self.S**3
 
     def single_slot_base(self, j):
         """First flat slot of singleton j (vectorised)."""
-        return self.patch_slots + j * self.dofh.n_loc
+        sps = max(self.singles_per_shard, 1)
+        return (
+            (j // sps) * self.shard_span
+            + self.patches_per_shard * self.S**3
+            + (j % sps) * self.dofh.n_loc
+        )
 
     def from_global(self, u: np.ndarray) -> np.ndarray:
         u = np.asarray(u)
@@ -546,6 +575,136 @@ def build_hybrid_format(
         irr_out_group=irr_out_group,
         cross_faces=cross_faces,
         use_cross=use_cross,
+    )
+
+
+def repartition_format(
+    fmt: HybridFormat, n_shards: int, cell_shard: np.ndarray | None = None
+) -> HybridFormat:
+    """Re-lay a single-device HybridFormat into the device-major layout for
+    ``n_shards`` ranks (see the HybridFormat docstring).
+
+    ``cell_shard`` (optional, [n_cells] rank per active cell) applies a
+    repartitioning policy (parallel/partition.py, the reference's
+    tria.repartition(), multigrid_throughput.cc:2145-2170): patches follow
+    their first cell, singletons their own cell.  Default: equal
+    patch-count blocks along the Morton order (the p4est DefaultPolicy
+    analog).  Every span is padded to the largest per-rank size with
+    dummies, so a weighted policy trades padding for balanced real work.
+    All flat slot ids are permuted; patch and singleton indices are
+    renumbered shard-major and every patch-indexed table is remapped (the
+    JAX package's repartition_format, dealii_multigrid_tpu/ops/hybrid.py)."""
+    if n_shards == 1 and cell_shard is None:
+        return fmt
+    assert fmt.n_shards == 1, "repartition from the single-device layout"
+    D = n_shards
+    S, nloc = fmt.S, fmt.dofh.n_loc
+    NP, NS = fmt.n_patches, fmt.n_singles
+
+    if cell_shard is None:
+        pps0 = -(-NP // D) if NP else 1
+        p_shard = np.arange(NP, dtype=np.int64) // pps0
+        sps0 = -(-NS // D) if NS else 1
+        s_shard = np.arange(NS, dtype=np.int64) // sps0
+    else:
+        cell_shard = np.asarray(cell_shard, np.int64)
+        assert cell_shard.max(initial=0) < D
+        # a negative id would scramble the layout through negative indexing
+        assert cell_shard.min(initial=0) >= 0
+        p_shard = cell_shard[fmt.patch_cells[:, 0]] if NP else np.zeros(0, np.int64)
+        s_shard = cell_shard[fmt.single_cells] if NS else np.zeros(0, np.int64)
+
+    def layout(shard, n):
+        """(new index per old item, items per shard after padding)."""
+        if n == 0:
+            return np.zeros(0, np.int64), 0
+        counts = np.bincount(shard, minlength=D)
+        per = int(counts.max())
+        order = np.argsort(shard, kind="stable")
+        cum = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        within = np.arange(n, dtype=np.int64) - cum[shard[order]]
+        new_idx = np.empty(n, np.int64)
+        new_idx[order] = shard[order] * per + within
+        return new_idx, per
+
+    new_p, pps = layout(p_shard, NP)
+    new_s, sps = layout(s_shard, NS)
+    NPp, NSp = D * pps, D * sps
+
+    patch_level = np.full(NPp, -1, np.int32)
+    patch_level[new_p] = fmt.patch_level
+    patch_block = np.full((NPp, 3), np.iinfo(np.int64).min // 2, np.int64)
+    patch_block[new_p] = fmt.patch_block
+    kcells = fmt.patch_cells.shape[1] if fmt.patch_cells.ndim == 2 else 1
+    patch_cells = np.full((NPp, kcells), -1, np.int64)
+    patch_cells[new_p] = fmt.patch_cells
+    patch_dof = np.zeros((NPp, S, S, S), np.int64)
+    patch_dof[new_p] = fmt.patch_dof
+    # neighbour tables: remap values through the new numbering, scatter columns
+    new_p_ext = np.concatenate([new_p, np.asarray([-1], np.int64)])
+    nbr = np.full((6, NPp), -1, np.int64)
+    if NP:
+        nbr[:, new_p] = new_p_ext[fmt.nbr]
+    single_cells = np.full(NSp, -1, np.int64)
+    single_cells[new_s] = fmt.single_cells
+    new_s_ext = np.concatenate([new_s, np.asarray([-1], np.int64)])
+    nbr_s = np.full((6, NSp), -1, np.int64)
+    if NS:
+        nbr_s[:, new_s] = new_s_ext[fmt.nbr_s]
+
+    span = pps * S**3 + sps * nloc
+    # perm: old flat slot id -> new flat slot id
+    if NP:
+        ni = np.repeat(new_p, S**3)
+        t = np.tile(np.arange(S**3, dtype=np.int64), NP)
+        perm_p = (ni // pps) * span + (ni % pps) * S**3 + t
+    else:
+        perm_p = np.zeros(0, np.int64)
+    if NS:
+        nj = np.repeat(new_s, nloc)
+        u = np.tile(np.arange(nloc, dtype=np.int64), NS)
+        perm_s = (nj // sps) * span + pps * S**3 + (nj % sps) * nloc + u
+    else:
+        perm_s = np.zeros(0, np.int64)
+    perm = np.concatenate([perm_p, perm_s])
+    n_slots_new = D * span
+
+    sentinel = fmt.dofh.n_dofs
+    slot_dof = np.full(n_slots_new, sentinel, np.int64)
+    slot_dof[perm] = fmt.slot_dof
+    rep_slot = perm[fmt.rep_slot]
+    owner = np.zeros(n_slots_new)
+    owner[perm] = fmt.owner
+    perm_ext = np.concatenate([perm, np.asarray([n_slots_new], np.int64)])
+    irr_slots = perm_ext[fmt.irr_slots] if fmt.irr_slots.size else fmt.irr_slots
+    irr_out_slots = (
+        perm[fmt.irr_out_slots] if fmt.irr_out_slots.size else fmt.irr_out_slots
+    )
+    cross_faces = tuple(
+        None if t is None else (new_p[t[0]], t[1], t[2], new_s[t[3]])
+        for t in fmt.cross_faces
+    )
+    return HybridFormat(
+        dofh=fmt.dofh,
+        K=fmt.K,
+        S=S,
+        patch_level=patch_level,
+        patch_block=patch_block,
+        patch_cells=patch_cells,
+        patch_dof=patch_dof,
+        nbr=nbr,
+        single_cells=single_cells,
+        slot_dof=slot_dof,
+        rep_slot=rep_slot,
+        owner=owner,
+        nbr_s=nbr_s,
+        use_singleton_sweeps=fmt.use_singleton_sweeps,
+        irr_slots=irr_slots,
+        irr_out_slots=irr_out_slots,
+        irr_out_group=fmt.irr_out_group,
+        n_shards=D,
+        cross_faces=cross_faces,
+        use_cross=fmt.use_cross,
     )
 
 

@@ -97,52 +97,9 @@ class HybridTransfer:
         cop = self.coarse_op
         if not self.ls_mode:
             uc = cop.apply_c(uc)
-        dtype, dev = uc.dtype, uc.device
-        S_c, S_f, sub = self.S_c, self.S_f, self.sub
-        ps_f = self.NP_f * S_f**3
-        out = torch.zeros(self.n_slots_f, dtype=dtype, device=dev)
-        out_p = out[:ps_f].view(self.NP_f, S_f, S_f, S_f)
-        if cop.NP and self.NP_f:
-            up_c = cop._patches(uc)
-            for (fidx, cidx, _ch), (ox, oy, oz) in zip(
-                self.patch_buckets, self.patch_offsets
-            ):
-                sv = up_c[:, ox : ox + sub, oy : oy + sub, oz : oz + sub][cidx]
-                out_p[fidx] = self._interp_sub(sv)
-            if self.id_bucket is not None:
-                fidx, cidx = self.id_bucket
-                out_p[fidx] = up_c[cidx]
-            if self.id_oct:
-                # src_rows pads with NP_c: the appended zero patch
-                up_pad = torch.cat([up_c, up_c.new_zeros((1,) + up_c.shape[1:])])
-                for (src_rows, _fr), (dx, dy, dz) in zip(
-                    self.id_oct, self.id_oct_offsets
-                ):
-                    g = up_pad[src_rows]
-                    out_p[
-                        :,
-                        dx * S_c : dx * S_c + S_c - dx,
-                        dy * S_c : dy * S_c + S_c - dy,
-                        dz * S_c : dz * S_c + S_c - dz,
-                    ] += g[:, dx:, dy:, dz:]
-        if self.irr_patch is not None:
-            fidx, sub_slots = self.irr_patch
-            sv = uc[sub_slots].view(-1, sub, sub, sub)
-            out_p[fidx] = self._interp_sub(sv)
-        if self.irr_id is not None:
-            fidx, slots = self.irr_id
-            out_p[fidx] = uc[slots].view(-1, S_f, S_f, S_f)
-        if self.NS_f:
-            out_s = out[ps_f:].view(self.NS_f, self.nloc_f)
-            for sidx, src_slots, M in self.single_buckets:
-                out_s[sidx] = torch.matmul(uc[src_slots], M.T)
-            if self.single_fast:
-                us_c = cop._singles(uc)
-                for sidx, crow, M in self.single_fast:
-                    out_s[sidx] = torch.matmul(us_c[crow], M.T)
-        if self.ls_mode:
-            return out
-        return out * self.fine_constrained_keep
+        up_c = cop._patches(uc) if cop.NP else None
+        us_c = cop._singles(uc) if self.single_fast else None
+        return _prolong_core(self, uc, up_c, us_c)
 
     def restrict(self, rf: torch.Tensor) -> torch.Tensor:
         cop = self.coarse_op
@@ -150,50 +107,11 @@ class HybridTransfer:
             rf = rf * self.fine_owner
         else:
             rf = rf * self.fine_constrained_keep * self.fine_owner
-        dtype, dev = rf.dtype, rf.device
-        S_c, S_f, sub = self.S_c, self.S_f, self.sub
-        acc = torch.zeros(self.n_slots_c, dtype=dtype, device=dev)
+        S_f = self.S_f
         rp = rf[: self.NP_f * S_f**3].view(self.NP_f, S_f, S_f, S_f)
-        if cop.NP and self.NP_f:
-            acc_p = cop._patches(acc)
-            for (fidx, cidx, child_rows), (ox, oy, oz) in zip(
-                self.patch_buckets, self.patch_offsets
-            ):
-                v = self._interp_sub_t(rp[fidx])
-                # every coarse patch has at most ONE fine child per octant
-                # (checked at build time): the window update is a row gather
-                # (child_rows pads with len(fidx): the appended zero row)
-                vpad = torch.cat([v, v.new_zeros((1, sub, sub, sub))])
-                acc_p[:, ox : ox + sub, oy : oy + sub, oz : oz + sub] += vpad[child_rows]
-            if self.id_bucket is not None:
-                # one fine patch per coarse patch (checked at build time):
-                # one addition per target, exact and repeatable
-                fidx, cidx = self.id_bucket
-                acc_p.index_add_(0, cidx, rp[fidx])
-            for (_sr, fine_rows), (dx, dy, dz) in zip(
-                self.id_oct, self.id_oct_offsets
-            ):
-                win = rp[
-                    :,
-                    dx * S_c : dx * S_c + S_c - dx,
-                    dy * S_c : dy * S_c + S_c - dy,
-                    dz * S_c : dz * S_c + S_c - dz,
-                ]
-                # fine_rows pads with NP_f: the appended zero window
-                wpad = torch.cat([win, win.new_zeros((1,) + win.shape[1:])])
-                acc_p[:, dx:, dy:, dz:] += wpad[fine_rows]
-        # the slot-table scatters, in the order of restrict_sum's sources
-        parts = []
-        if self.irr_patch is not None:
-            parts.append(self._interp_sub_t(rp[self.irr_patch[0]]).reshape(-1))
-        if self.irr_id is not None:
-            parts.append(rp[self.irr_id[0]].reshape(-1))
-        if self.NS_f:
-            rs = rf[self.NP_f * S_f**3 :].view(self.NS_f, self.nloc_f)
-            for sidx, _slots, M in self.single_buckets + self.single_fast:
-                parts.append(torch.matmul(rs[sidx], M).reshape(-1))
-        if parts:
-            self.restrict_sum.add_into(acc, torch.cat(parts))
+        rs = rf[self.NP_f * S_f**3 :].view(self.NS_f, self.nloc_f)
+        acc = torch.zeros(self.n_slots_c, dtype=rf.dtype, device=rf.device)
+        _restrict_core(self, rp, rs, acc, cop._patches(acc) if cop.NP else None)
         return self._restrict_coarse_tail(acc)
 
     def _restrict_coarse_tail(self, acc: torch.Tensor) -> torch.Tensor:
@@ -206,6 +124,92 @@ class HybridTransfer:
         acc = cop.apply_ct_faces(acc)
         acc = cop.exchange(acc)
         return cop.apply_ct(acc)
+
+
+def _prolong_core(t, uc: torch.Tensor, up_c, us_c) -> torch.Tensor:
+    """Prolongation into the fine slots of ``t`` (a transfer's tables):
+    coarse values from the slot vector ``uc``, its patch lattices ``up_c``
+    (None: the coarse level has no patches) and singleton rows ``us_c``."""
+    dtype, dev = uc.dtype, uc.device
+    S_c, S_f, sub = t.S_c, t.S_f, t.sub
+    ps_f = t.NP_f * S_f**3
+    out = torch.zeros(t.n_slots_f, dtype=dtype, device=dev)
+    out_p = out[:ps_f].view(t.NP_f, S_f, S_f, S_f)
+    if up_c is not None and t.NP_f:
+        for (fidx, cidx, _ch), (ox, oy, oz) in zip(t.patch_buckets, t.patch_offsets):
+            sv = up_c[:, ox : ox + sub, oy : oy + sub, oz : oz + sub][cidx]
+            out_p[fidx] = t._interp_sub(sv)
+        if t.id_bucket is not None:
+            fidx, cidx = t.id_bucket
+            out_p[fidx] = up_c[cidx]
+        if t.id_oct:
+            # src_rows pads with the coarse patch count: the appended zero patch
+            up_pad = torch.cat([up_c, up_c.new_zeros((1,) + up_c.shape[1:])])
+            for (src_rows, _fr), (dx, dy, dz) in zip(t.id_oct, t.id_oct_offsets):
+                g = up_pad[src_rows]
+                out_p[
+                    :,
+                    dx * S_c : dx * S_c + S_c - dx,
+                    dy * S_c : dy * S_c + S_c - dy,
+                    dz * S_c : dz * S_c + S_c - dz,
+                ] += g[:, dx:, dy:, dz:]
+    if t.irr_patch is not None:
+        fidx, sub_slots = t.irr_patch
+        sv = uc[sub_slots].view(-1, sub, sub, sub)
+        out_p[fidx] = t._interp_sub(sv)
+    if t.irr_id is not None:
+        fidx, slots = t.irr_id
+        out_p[fidx] = uc[slots].view(-1, S_f, S_f, S_f)
+    if t.NS_f:
+        out_s = out[ps_f:].view(t.NS_f, t.nloc_f)
+        for sidx, src_slots, M in t.single_buckets:
+            out_s[sidx] = torch.matmul(uc[src_slots], M.T)
+        for sidx, crow, M in t.single_fast:
+            out_s[sidx] = torch.matmul(us_c[crow], M.T)
+    if t.ls_mode:
+        return out
+    return out * t.fine_constrained_keep
+
+
+def _restrict_core(t, rp: torch.Tensor, rs: torch.Tensor, acc: torch.Tensor, acc_p) -> None:
+    """In place on the coarse accumulator ``acc`` (its patch view
+    ``acc_p``, None without coarse patches): the restriction of the masked
+    fine values, patch lattices ``rp`` and singleton rows ``rs``."""
+    S_c, sub = t.S_c, t.sub
+    if acc_p is not None and t.NP_f:
+        for (fidx, cidx, child_rows), (ox, oy, oz) in zip(t.patch_buckets, t.patch_offsets):
+            v = t._interp_sub_t(rp[fidx])
+            # every coarse patch has at most ONE fine child per octant
+            # (checked at build time): the window update is a row gather
+            # (child_rows pads with len(fidx): the appended zero row)
+            vpad = torch.cat([v, v.new_zeros((1, sub, sub, sub))])
+            acc_p[:, ox : ox + sub, oy : oy + sub, oz : oz + sub] += vpad[child_rows]
+        if t.id_bucket is not None:
+            # one fine patch per coarse patch (checked at build time):
+            # one addition per target, exact and repeatable
+            fidx, cidx = t.id_bucket
+            acc_p.index_add_(0, cidx, rp[fidx])
+        for (_sr, fine_rows), (dx, dy, dz) in zip(t.id_oct, t.id_oct_offsets):
+            win = rp[
+                :,
+                dx * S_c : dx * S_c + S_c - dx,
+                dy * S_c : dy * S_c + S_c - dy,
+                dz * S_c : dz * S_c + S_c - dz,
+            ]
+            # fine_rows pads with the fine patch count: the appended zero window
+            wpad = torch.cat([win, win.new_zeros((1,) + win.shape[1:])])
+            acc_p[:, dx:, dy:, dz:] += wpad[fine_rows]
+    # the slot-table scatters, in the order of restrict_sum's sources
+    parts = []
+    if t.irr_patch is not None:
+        parts.append(t._interp_sub_t(rp[t.irr_patch[0]]).reshape(-1))
+    if t.irr_id is not None:
+        parts.append(rp[t.irr_id[0]].reshape(-1))
+    if t.NS_f:
+        for sidx, _slots, M in t.single_buckets + t.single_fast:
+            parts.append(torch.matmul(rs[sidx], M).reshape(-1))
+    if parts:
+        t.restrict_sum.add_into(acc, torch.cat(parts))
 
 
 def _h_patch_embedding_1d(K: int, degree: int) -> np.ndarray:
@@ -556,13 +560,11 @@ def hybrid_transfer_tables(
     return tables, meta
 
 
-def _restrict_sum(t: dict, meta: dict, patch_slots_c: int, device) -> FixedOrderSum | None:
-    """The fixed-order table of restriction's slot-table scatters: the
-    coarse slot of every source value of ``irr_patch``, ``irr_id``, the
-    singleton buckets and the whole-row singleton buckets, in that order."""
-    if t["id_bucket"] is not None:
-        cidx = np.asarray(t["id_bucket"][1])
-        assert len(np.unique(cidx)) == len(cidx), "coarse patch with two identity children"
+def restrict_targets(t: dict, single_base_c) -> list:
+    """The coarse slot of every source value of restriction's slot-table
+    scatters: ``irr_patch``, ``irr_id``, the singleton buckets and the
+    whole-row singleton buckets, in that order (``single_base_c(j)``: the
+    first slot of coarse singleton j)."""
     targets = []
     for key in ("irr_patch", "irr_id"):
         if t[key] is not None:
@@ -572,8 +574,20 @@ def _restrict_sum(t: dict, meta: dict, patch_slots_c: int, device) -> FixedOrder
     for _sidx, crow, M in t["single_fast"]:
         nloc_c = np.asarray(M).shape[1]
         targets.append(
-            (patch_slots_c + np.asarray(crow)[:, None] * nloc_c + np.arange(nloc_c)).reshape(-1)
+            (single_base_c(np.asarray(crow))[:, None] + np.arange(nloc_c)).reshape(-1)
         )
+    return targets
+
+
+def _restrict_sum(t: dict, meta: dict, patch_slots_c: int, device) -> FixedOrderSum | None:
+    """The fixed-order table of restriction's slot-table scatters
+    (``restrict_targets``) on a one-device coarse level."""
+    if t["id_bucket"] is not None:
+        cidx = np.asarray(t["id_bucket"][1])
+        assert len(np.unique(cidx)) == len(cidx), "coarse patch with two identity children"
+    targets = restrict_targets(
+        t, lambda j: patch_slots_c + j * np.asarray(t["single_fast"][0][2]).shape[1]
+    )
     if not targets:
         return None
     return FixedOrderSum.build(np.concatenate(targets), meta["n_slots_c"], device)
@@ -581,8 +595,18 @@ def _restrict_sum(t: dict, meta: dict, patch_slots_c: int, device) -> FixedOrder
 
 def make_hybrid_transfer(fine_fmt, coarse_fmt, fine_op: HybridOperator,
                          coarse_op: HybridOperator, ls_mode: bool = False) -> HybridTransfer:
-    """Host tables -> device transfer on the operators' device and dtype."""
+    """Host tables -> device transfer on the operators' device and dtype; a
+    rank's part of it (ops/hybrid_rank.py) where either level is
+    device-major."""
     tables, meta = hybrid_transfer_tables(fine_fmt, coarse_fmt)
+    if fine_fmt.n_shards > 1 or coarse_fmt.n_shards > 1:
+        from ..parallel.comm import current_comm
+        from .hybrid_rank import RankHybridTransfer
+
+        return RankHybridTransfer(
+            tables, meta, fine_fmt, coarse_fmt, fine_op, coarse_op, ls_mode,
+            coarse_op.device, coarse_op.dtype, current_comm(),
+        )
     return HybridTransfer.from_arrays(
         tables, meta, fine_op, coarse_op, coarse_op.device, coarse_op.dtype, ls_mode
     )

@@ -44,6 +44,7 @@ from ..ops.hybrid import HybridOperator, make_hybrid_operator
 from ..ops.hybrid_format import (
     HybridFormat,
     build_hybrid_format,
+    repartition_format,
     sanitizer_enabled,
     slots_of,
     verify_format,
@@ -154,14 +155,17 @@ class LSLevelHost:
 
 def ls_level_host(
     active_dofh: DoFHandler, active_fmt: HybridFormat, lm: AdaptiveMesh, l: int,
-    K: int = 8,
+    K: int = 8, n_shards: int = 1,
 ) -> LSLevelHost:
-    """Level ``l``'s DoFs, edge set, hybrid layout, diagonal and copy tables."""
+    """Level ``l``'s DoFs, edge set, hybrid layout (device-major over
+    ``n_shards`` ranks when above 1), diagonal and copy tables."""
     dofh, edge, diag = level_dofs(lm, active_dofh.degree)
     # identity rows of the level operator = boundary ∪ edge
     # (operator.h:152-183): fold the edge set into the Dirichlet mask
     dofh.boundary_mask = dofh.boundary_mask | edge
     fmt = build_hybrid_format(dofh, K=K)
+    if n_shards > 1:
+        fmt = repartition_format(fmt, n_shards)
     if sanitizer_enabled():
         verify_format(fmt)
 
@@ -207,8 +211,13 @@ class LSHybridLevel:
     to_src: torch.Tensor
     from_slots: torch.Tensor
     from_src: torch.Tensor
-    n_dofs: int                 # n_slots of the level layout
+    n_dofs: int                 # n_slots of the level layout (a rank's span)
     fmt: HybridFormat           # host layout (its dofh: the level's DoFs)
+    # sharded runs: the ghost imports of the two copies (parallel/comm.py;
+    # None on one device): to_src reads the active layout extended by
+    # to_ext, from_src this level's layout extended by from_ext
+    to_ext: object = None
+    from_ext: object = None
 
     @property
     def keep(self) -> torch.Tensor:
@@ -292,15 +301,18 @@ class LocalSmoothingMGHybrid(_LSCycle):
     smoothers: tuple            # smoothers[0] unused (None)
     transfers: tuple            # ls_mode HybridTransfer; transfers[l]: l-1 -> l
     coarse_solve: object        # called as coarse_solve(b)
-    n_dofs_global: int          # n_slots of the active layout
+    n_dofs_global: int          # n_slots of the active layout (a rank's span)
     hook: Callable = untimed
+    # per level mesh, the cell->rank map applied (None: replicated)
+    partitions: tuple = ()
 
     def copy_to_mg(self, r_active: torch.Tensor) -> list:
         """copy_to_mg, zeroing each level's boundary ∪ edge rows."""
         defect = []
         for lev in self.levels:
             d = r_active.new_zeros(lev.n_dofs)
-            d[lev.to_slots] = r_active[lev.to_src]
+            src = r_active if lev.to_ext is None else lev.to_ext.extend(r_active)
+            d[lev.to_slots] = src[lev.to_src]
             defect.append(d * lev.keep)
         return defect
 
@@ -311,7 +323,8 @@ class LocalSmoothingMGHybrid(_LSCycle):
         duplicate writes undefined on CUDA)."""
         out = r_active.new_zeros(self.n_dofs_global)
         for lev, u in zip(self.levels, sols):
-            out[lev.from_slots] = u[lev.from_src]
+            src = u if lev.from_ext is None else lev.from_ext.extend(u)
+            out[lev.from_slots] = src[lev.from_src]
         return out
 
 
@@ -551,9 +564,14 @@ def build_local_smoothing_mg_hybrid(
     device: torch.device,
     dtype: torch.dtype,
     min_level: int = 0,
+    n_shards: int = 1,
 ) -> LocalSmoothingMGHybrid:
     """Hybrid-engine LS hierarchy on one device; ``active_fmt`` is the
     active mesh's layout, the one the preconditioner reads and writes.
+    With ``n_shards`` > 1 each level mesh gets its own Morton-block
+    device-major partition, or is replicated below the granularity
+    threshold (the reference's per-level partitioners,
+    multigrid_throughput.cc:1800-1802), and this rank builds its part.
 
     Order as in the JAX package's function: the levels (one NumPy
     generator, seed 42, draws the eigenvalue start vectors in level
@@ -573,19 +591,35 @@ def build_local_smoothing_mg_hybrid(
 
     hosts, levels = [], []
     for l in range(lmin, active.max_level + 1):
-        h = ls_level_host(active_dofh, active_fmt, level_mesh(active, l), l)
+        lm = level_mesh(active, l)
+        D_l = 1
+        if n_shards > 1:
+            from ..parallel.sharding import hybrid_level_shard_count
+
+            D_l = hybrid_level_shard_count(lm.n_cells, n_shards)
+        h = ls_level_host(active_dofh, active_fmt, lm, l, n_shards=D_l)
         n = h.dofh.n_dofs
+        op = make_hybrid_operator(h.fmt, no_constraints(n), device, dtype)
+        if h.fmt.n_shards > 1 or active_fmt.n_shards > 1:
+            from ..parallel.sharding import rank_copies
+
+            copies = rank_copies(h, active_fmt, device)
+        else:
+            copies = dict(to_slots=h.to_slots, to_src=h.to_src,
+                          from_slots=h.from_slots, from_src=h.from_src)
         levels.append(LSHybridLevel(
-            op=make_hybrid_operator(h.fmt, no_constraints(n), device, dtype),
-            edge_ind=dev(h.fmt.from_global(h.edge.astype(np.float64))),
-            inv_diag=dev(h.fmt.from_global(1.0 / h.diag)),
-            eig_b0=dev(h.fmt.from_global(rng.standard_normal(n))),
-            to_slots=idx(h.to_slots),
-            to_src=idx(h.to_src),
-            from_slots=idx(h.from_slots),
-            from_src=idx(h.from_src),
-            n_dofs=h.fmt.n_slots,
+            op=op,
+            edge_ind=dev(op.own(h.fmt.from_global(h.edge.astype(np.float64)))),
+            inv_diag=dev(op.own(h.fmt.from_global(1.0 / h.diag))),
+            eig_b0=dev(op.own(h.fmt.from_global(rng.standard_normal(n)))),
+            to_slots=idx(copies["to_slots"]),
+            to_src=idx(copies["to_src"]),
+            from_slots=idx(copies["from_slots"]),
+            from_src=idx(copies["from_src"]),
+            n_dofs=int(op.n_slots),
             fmt=h.fmt,
+            to_ext=copies.get("to_ext"),
+            from_ext=copies.get("from_ext"),
         ))
         hosts.append(h)
 
@@ -613,10 +647,26 @@ def build_local_smoothing_mg_hybrid(
         h0.dofh, no_constraints(h0.dofh.n_dofs), dtype, device, mg_data,
         to_idx=idx(h0.fmt.rep_slot), from_idx=idx(h0.fmt.slot_dof),
     )
+    if h0.fmt.n_shards > 1:
+        from ..parallel.sharding import GatheredSolve
+
+        coarse = GatheredSolve(coarse, levels[0].op)
+    if n_shards > 1:
+        from ..parallel.comm import SlotPart, current_comm
+        from ..parallel.sharding import default_cell_shard_map
+
+        n_active = SlotPart.of(active_fmt, current_comm().rank).span
+        parts = tuple(
+            default_cell_shard_map(h.fmt, h.fmt.dofh.mesh.n_cells) if h.fmt.n_shards > 1 else None
+            for h in hosts
+        )
+    else:
+        n_active, parts = active_fmt.n_slots, ()
     return LocalSmoothingMGHybrid(
         levels=tuple(levels),
         smoothers=tuple(smoothers),
         transfers=tuple(transfers),
         coarse_solve=coarse,
-        n_dofs_global=active_fmt.n_slots,
+        n_dofs_global=n_active,
+        partitions=parts,
     )

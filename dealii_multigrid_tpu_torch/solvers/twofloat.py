@@ -150,13 +150,17 @@ def tf_xpby(z: torch.Tensor, beta, p: TF) -> TF:
     return TF(hi, lo)
 
 
-def _csum(h: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+def _csum(h: torch.Tensor, c: torch.Tensor, allsum=None) -> torch.Tensor:
     """Reduce a compensated product stream: sum the exact high parts and the
-    collected error terms separately (both f32 reductions), then combine."""
+    collected error terms separately (both f32 reductions), then combine.
+    ``allsum`` adds each part over the ranks of a sharded vector first."""
+    if allsum is not None:
+        hc = allsum(torch.stack([torch.sum(h), torch.sum(c)]))
+        return hc[0] + hc[1]
     return torch.sum(h) + torch.sum(c)
 
 
-def tf_dot(a: TF, b: TF, weight: torch.Tensor | None = None) -> torch.Tensor:
+def tf_dot(a: TF, b: TF, weight: torch.Tensor | None = None, allsum=None) -> torch.Tensor:
     """Compensated dot of two double-single vectors -> f32 scalar tensor.
 
     The hi products are error-free (two_prod); the error terms and the
@@ -168,10 +172,11 @@ def tf_dot(a: TF, b: TF, weight: torch.Tensor | None = None) -> torch.Tensor:
         w = weight.to(torch.float32)
         h = h * w
         c = c * w
-    return _csum(h, c)
+    return _csum(h, c, allsum)
 
 
-def tf_dot_f32(a: TF, v: torch.Tensor, weight: torch.Tensor | None = None) -> torch.Tensor:
+def tf_dot_f32(a: TF, v: torch.Tensor, weight: torch.Tensor | None = None,
+               allsum=None) -> torch.Tensor:
     """Compensated dot of a double-single vector with a plain f32 vector."""
     h, e = two_prod(a.hi, v)
     c = e + a.lo * v
@@ -179,11 +184,11 @@ def tf_dot_f32(a: TF, v: torch.Tensor, weight: torch.Tensor | None = None) -> to
         w = weight.to(torch.float32)
         h = h * w
         c = c * w
-    return _csum(h, c)
+    return _csum(h, c, allsum)
 
 
-def tf_norm(a: TF, weight: torch.Tensor | None = None) -> torch.Tensor:
-    return torch.sqrt(tf_dot(a, a, weight))
+def tf_norm(a: TF, weight: torch.Tensor | None = None, allsum=None) -> torch.Tensor:
+    return torch.sqrt(tf_dot(a, a, weight, allsum))
 
 
 def cg_solve_df32(
@@ -195,6 +200,7 @@ def cg_solve_df32(
     reltol: float = 1e-4,
     force_iterations: int | None = None,
     weight: torch.Tensor | None = None,
+    allsum=None,
 ) -> CGResult:
     """PCG with double-single outer vectors, deal.II ordering (as
     cg.cg_solve: the preconditioner applies after the convergence test, beta
@@ -202,13 +208,14 @@ def cg_solve_df32(
 
     ``a_vmult`` and ``preconditioner`` are plain f32 maps (the hybrid
     operator and the f32 V-cycle); x, r, p carry (hi, lo) pairs.  Returns a
-    CGResult whose x is the TF pair (callers round or widen it)."""
+    CGResult whose x is the TF pair (callers round or widen it).  On a
+    sharded level ``allsum`` adds every dot's partials over the ranks."""
     if preconditioner is None:
         preconditioner = lambda r: r
     x = tf_zeros_like(b.hi)
     r = TF(b.hi, b.lo)
     p = x
-    rz = tf_dot(r, r, weight)
+    rz = tf_dot(r, r, weight, allsum)
     norm0 = float(torch.sqrt(rz))
     if force_iterations is not None:
         tol, maxiter = 0.0, force_iterations
@@ -218,13 +225,13 @@ def cg_solve_df32(
     it = 0
     while res > tol and it < maxiter:
         z = preconditioner(tf_round(r))
-        rz_new = tf_dot_f32(r, z, weight)
+        rz_new = tf_dot_f32(r, z, weight, allsum)
         p = tf_xpby(z, rz_new / rz, p) if it > 0 else tf_from_f32(z)
         ap = a_vmult(tf_round(p))
-        alpha = rz_new / tf_dot_f32(p, ap, weight)
+        alpha = rz_new / tf_dot_f32(p, ap, weight, allsum)
         x = tf_axpy(alpha, p, x)
         r = tf_axpy_f32(-alpha, ap, r)
         rz = rz_new
         it += 1
-        res = float(tf_norm(r, weight))
+        res = float(tf_norm(r, weight, allsum))
     return CGResult(x, it, res, res <= tol, norm0)

@@ -7,7 +7,8 @@
 # COMMIT goes to each artifact's header ("" takes git rev-parse HEAD).
 # Each sweep leaves OUT_DIR/<generator>[-args].txt and OUT_DIR/<...>.log (the
 # runner's output); the last line of each log counts the rows equal to the
-# record, differing, ambiguous and without a record.  Extra options (e.g.
+# record, differing, ambiguous and without a record (and, for a sweep with
+# sharded rows, their partition columns equal to the record's or not).  Extra options (e.g.
 # --device cpu) go to every run.  A sweep that fails or differs does not
 # stop the others; the exit code is the number of such sweeps.
 set -u
@@ -51,4 +52,8 @@ run parameters_tolerance-5-6 parameters_tolerance 5 6 \
   --against results/parameters-tolerance-tpu.txt
 run parameters_weights-5-6 parameters_weights 5 6 \
   --against results/parameters-weights-tpu.txt
+# NShards 8 and 1 alternate: the 8-rank rows run over 8 ranks (sharing the
+# card) and their partition columns are held to the record's rows too
+run large_scaling_partitioning-8-1 large_scaling_partitioning 8,1 --max-ref 5 \
+  --against results/large-scaling-partitioning-virtual8.txt
 exit $bad

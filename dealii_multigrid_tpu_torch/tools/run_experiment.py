@@ -13,8 +13,9 @@ cumulative table is rewritten after every config.
 
 ``--max-ref`` leaves out configs with NRefGlobal above N; ``--budget-s``
 leaves out the configs after the wall-clock budget is spent; a config that
-raises (a sharded config raises NotImplementedError naming ROADMAP item 13)
-loses its row.  Each of these lands on a ``#`` line of the artifact.
+raises loses its row.  Each of these lands on a ``#`` line of the artifact.
+A config with ``NShards`` above 1 runs domain-decomposed over that many
+ranks (api.dispatch_solve starts them; on a card they share it).
 
 The runs go to ``cuda:0`` unless ``--device cpu`` is given; without a card
 the default raises.  The artifact is ``results/torch-h100/<generator>
@@ -33,8 +34,15 @@ compared).  Times in a record are never compared.  Each row gets
 (``compare_rows``), printed and written to the artifact with a count of
 each.
 
-The exit code is 1 when a row differs from its record or a config failed,
-else 0.
+A record without an ``n_shards`` column cannot tell a sweep's shard
+counts apart by its columns; its rows are in config order, so the
+partition-quality columns of a sharded row (``PARTITION_COLUMNS``) are held
+to the record's row of the same config number, as printed
+(``compare_partitions``; ``partitions equal`` or ``partitions differ``).
+An unsharded row's columns describe one rank here and are not compared.
+
+The exit code is 1 when a row differs from its record (its iteration count
+or, on a sharded row, its partition columns) or a config failed, else 0.
 """
 
 from __future__ import annotations
@@ -62,6 +70,9 @@ VERDICTS = ("equal", "differs", "ambiguous", "none")
 #: the columns that identify a row when it is held to a record
 KEYS = ("type", "geometry", "degree", "n_ref_global", "min_level", "mg_number",
         "coarse_type", "n_cycles", "smoother_deg", "reltol")
+#: the columns of the MG statistics that describe the partition of a run
+PARTITION_COLUMNS = ("sub_comm_size", "workload_eff", "workload_path_max",
+                     "workload_path_max_node", "vertical_eff", "horizontal_eff")
 
 
 def find_generator(name: str) -> str:
@@ -162,6 +173,24 @@ def compare_rows(rows: list[dict], record: list[dict]) -> list[tuple[str, str]]:
     return out
 
 
+def compare_partitions(rows: list[dict], names: list[str], record: list[dict]) -> list:
+    """Per row of a sharded config: (config, verdict, description), the row
+    held to the record's row of the same config number (``input_NNNN``) on
+    ``PARTITION_COLUMNS``, as printed."""
+    out = []
+    for row, name in zip(rows, names):
+        i = int(name[len("input_"):len("input_") + 4])
+        rec = record[i] if i < len(record) else None
+        if rec is None or not all(not rec.get(k) or _same(rec[k], _cell(row, k)) for k in KEYS):
+            out.append((name, "none", "partitions: no record row of this config"))
+            continue
+        bad = [f"{k} port {_cell(row, k)} record {rec.get(k, '')}"
+               for k in PARTITION_COLUMNS if not _same(rec.get(k, ""), _cell(row, k))]
+        out.append((name, "differ" if bad else "equal",
+                    "partitions differ (" + "; ".join(bad) + ")" if bad else "partitions equal"))
+    return out
+
+
 # ------------------------------------------------------------------ runs
 
 
@@ -176,6 +205,7 @@ class Sweep:
     skipped_ref: list = field(default_factory=list)
     skipped_budget: list = field(default_factory=list)
     verdicts: list = field(default_factory=list)    # (record, config, verdict, text)
+    partitions: list = field(default_factory=list)  # (record, config, verdict, text)
 
     def count(self, verdict: str) -> int:
         return sum(v == verdict for _, _, v, _ in self.verdicts)
@@ -201,6 +231,7 @@ def run_experiment(
     sweep = Sweep(out_path)
     table = ConvergenceTable()
     names: list[str] = []    # the config of each table row
+    sharded: list[bool] = []  # whether that config ran on more than one rank
     t0 = time.time()
 
     def write() -> None:
@@ -221,7 +252,7 @@ def run_experiment(
                         f"{', '.join(sweep.skipped_budget)}\n")
             for msg in sweep.failed:
                 f.write(f"# FAILED {msg}\n")
-            for rec, cfg, _, text in sweep.verdicts:
+            for rec, cfg, _, text in sweep.verdicts + sweep.partitions:
                 f.write(f"# against {os.path.relpath(rec, REPO)}: {cfg} {text}\n")
             for rec in records:
                 f.write(f"# against {os.path.relpath(rec, REPO)}: "
@@ -256,6 +287,7 @@ def run_experiment(
         else:
             sweep.ran.append((name, time.time() - t_cfg))
             names.append(name)
+            sharded.append(params.n_shards > 1)
         if device.type == "cuda":
             torch.cuda.empty_cache()
         write()
@@ -263,6 +295,12 @@ def run_experiment(
     for rec, record in records.items():
         for name, (verdict, text) in zip(names, compare_rows(table.rows, record)):
             sweep.verdicts.append((rec, name, verdict, text))
+        picked = [(row, nm) for row, nm, sh in zip(table.rows, names, sharded) if sh]
+        if picked:
+            for name, verdict, text in compare_partitions(
+                [r for r, _ in picked], [n for _, n in picked], record
+            ):
+                sweep.partitions.append((rec, name, verdict, text))
     write()
     return sweep
 
@@ -289,13 +327,16 @@ def main(argv: list[str] | None = None) -> int:
         args.experiment, args.gen_args, device, args.out, args.max_ref, args.budget_s,
         args.against, args.commit,
     )
-    for rec, cfg, _, text in sweep.verdicts:
+    for rec, cfg, _, text in sweep.verdicts + sweep.partitions:
         print(f"{os.path.relpath(rec, REPO)}: {cfg} {text}")
+    n_part = {v: sum(w == v for _, _, w, _ in sweep.partitions) for v in ("equal", "differ", "none")}
     print(f"{sweep.out_path}: {len(sweep.ran)} ran, {len(sweep.failed)} failed, "
           f"{len(sweep.skipped_ref)} skipped by --max-ref, {len(sweep.skipped_budget)} by the "
           f"budget; against records: "
-          + ", ".join(f"{sweep.count(v)} {v}" for v in VERDICTS))
-    return 1 if sweep.failed or sweep.count("differs") else 0
+          + ", ".join(f"{sweep.count(v)} {v}" for v in VERDICTS)
+          + (f"; sharded rows' partitions: {n_part['equal']} equal, {n_part['differ']} differ, "
+             f"{n_part['none']} none" if sweep.partitions else ""))
+    return 1 if sweep.failed or sweep.count("differs") or n_part["differ"] else 0
 
 
 if __name__ == "__main__":

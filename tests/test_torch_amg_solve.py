@@ -114,12 +114,14 @@ def test_df32_with_amg_raises():
         tapi.run(params(TParams, "AMG", 2, 2, number="df32"), "cpu")
 
 
-def test_2d_multigrid_names_its_roadmap_item():
-    """2D multigrid (ROADMAP item 11) solves on the gather engine now; what
-    still raises in 2D names its item (13, sharding)."""
+def test_2d_multigrid_runs_unsharded():
+    """2D multigrid (ROADMAP item 11) solves on the gather engine; with
+    n_shards=2 it runs unsharded, as in the JAX package (which shards only
+    the 3D hybrid paths), and reports one shard."""
     res, _, _ = tapi.run(params(TParams, "HMG-global", 3, 2, dim=2), "cpu")
     assert res.converged and res.mg is not None
     prm = params(TParams, "HMG-global", 3, 2, dim=2)
     prm.n_shards = 2
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tapi.run(prm, "cpu")
+    two, _, _ = tapi.run(prm, "cpu")
+    assert two.n_shards == 1 and two.n_iterations == res.n_iterations
+    assert torch.equal(two.x, res.x)

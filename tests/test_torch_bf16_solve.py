@@ -159,6 +159,80 @@ def test_bf16_v_cycle_with_jax_intervals():
     assert err <= 3e-2
 
 
+def test_bf16_v_cycle_bit_equal_to_jax_stage_by_stage():
+    """HMG-global r=3 p=4 with bfloat16 levels and the JAX smoothers'
+    intervals: every stage of one V-cycle (each jitted alone on the JAX
+    side) and the whole V-cycle (one jit) equal the JAX package's bit for
+    bit.  The structured C^T on faces and the restriction's slot-table
+    sums are where the packages differed: the port summed a target's
+    sources first (torch rounds a bfloat16 sum once) and added the sum,
+    the JAX package's scatter-add adds them one at a time; 17 slots of
+    apply_ct_faces differed here (ops/fixed_order.py now adds bfloat16
+    sources one at a time)."""
+    jres, tres, levels = solved("HMG-global", "bfloat16", "float")
+    jmg = jres.mg
+    tmg = dataclasses.replace(tres.mg, smoothers=copy_intervals(tres.mg.smoothers, jmg.smoothers))
+    fine = levels[-1]
+    b = np.random.default_rng(7).standard_normal(fine.dofh.n_dofs)
+    x = fine.fmt.from_global(b) * fine.op.constrained_keep.double().numpy()
+    diffs = v_cycle_stages(jmg, tmg, x)
+    print("bf16 V-cycle stages, slots that differ:", diffs)
+    assert all(n == 0 for n in diffs.values()), diffs
+
+
+def v_cycle_stages(jmg, tmg, x) -> dict:
+    """Slots that differ between the two packages' bfloat16 V-cycle stages:
+    on the finest level apply_c, apply_ct_faces, exchange, apply_ct and
+    the whole vmult; on every level above the coarsest the pre-smoothing,
+    the residual and the restriction; the coarse solve; on the way up the
+    prolongation and the post-smoothing; the whole V-cycle in one jit.
+    Each stage takes the JAX side's previous output on both sides."""
+    J = jax.jit
+
+    def as_t(v):
+        return torch.as_tensor(np.asarray(v, np.float64), dtype=torch.bfloat16)
+
+    def nd(jv, tv):
+        return int((np.asarray(jv, np.float64) != tv.double().numpy()).sum())
+
+    out = {}
+    jb = jnp.asarray(x, jnp.bfloat16)
+    L = len(tmg.operators) - 1
+    jop, top = jmg.operators[L], tmg.operators[L]
+    out["apply_c"] = nd(J(lambda o, v: o.apply_c(v))(jop, jb), top.apply_c(as_t(jb)))
+    raw = J(lambda o, v: o.cell_apply_raw(o.apply_c(v)))(jop, jb)
+    f = J(lambda o, v: o.apply_ct_faces(v))(jop, raw)
+    out["apply_ct_faces"] = nd(f, top.apply_ct_faces(as_t(raw)))
+    e = J(lambda o, v: o.exchange(v))(jop, f)
+    out["exchange"] = nd(e, top.exchange(as_t(f)))
+    out["apply_ct"] = nd(J(lambda o, v: o.apply_ct(v))(jop, e), top.apply_ct(as_t(e)))
+    out["vmult"] = nd(J(lambda o, v: o.vmult(v))(jop, jb), top.vmult(as_t(jb)))
+    jbl, down = jb, {}
+    for level in range(L, 0, -1):
+        jsm, jop, jtr = jmg.smoothers[level], jmg.operators[level], jmg.transfers[level]
+        tsm, top, ttr = tmg.smoothers[level], tmg.operators[level], tmg.transfers[level]
+        jx = J(lambda sm, v: sm.vmult(v))(jsm, jbl)
+        out[f"L{level} pre"] = nd(jx, tsm.vmult(as_t(jbl)))
+        jr = J(lambda o, bb, xx: bb - o.vmult(xx))(jop, jbl, jx)
+        out[f"L{level} residual"] = nd(jr, as_t(jbl) - top.vmult(as_t(jx)))
+        jbc = J(lambda t, v: t.restrict(v))(jtr, jr)
+        out[f"L{level} restrict"] = nd(jbc, ttr.restrict(as_t(jr)))
+        down[level] = (jbl, jx)
+        jbl = jbc
+    jxc = J(lambda c, v: c(v))(jmg.coarse_solve, jbl)
+    out["coarse solve"] = nd(jxc, tmg.coarse_solve(as_t(jbl)))
+    for level in range(1, L + 1):
+        jsm, jtr = jmg.smoothers[level], jmg.transfers[level]
+        tsm, ttr = tmg.smoothers[level], tmg.transfers[level]
+        jbl, jx = down[level]
+        jxp = J(lambda t, xx, c: xx + t.prolong(c))(jtr, jx, jxc)
+        out[f"L{level} prolong"] = nd(jxp, as_t(jx) + ttr.prolong(as_t(jxc)))
+        jxc = J(lambda sm, xx, bb: sm.step(xx, bb))(jsm, jxp, jbl)
+        out[f"L{level} post"] = nd(jxc, tsm.step(as_t(jxp), as_t(jbl)))
+    out["V-cycle"] = nd(J(lambda m, v: m.vmult(v))(jmg, jb), tmg.vmult(as_t(jb)))
+    return out
+
+
 def test_bf16_2d_solve_count_matches_jax():
     """2D runs on the gather engine in both packages; with bfloat16 levels
     HMG-global at quadrant r=5 p=2 takes the JAX package's count (5)."""
@@ -237,6 +311,29 @@ def bf16_counts(refs=(4, 5, 6)) -> None:
             print(line, flush=True)
 
 
+def bf16_stages(r: int) -> None:
+    """HMG-global quadrant r, p=4, bfloat16 levels under float: both
+    packages' counts and the slots that differ at each V-cycle stage
+    (``v_cycle_stages``).  Run as ``PYTHONPATH=.:tests python
+    tests/test_torch_bf16_solve.py stages 4``; with
+    ``XLA_FLAGS=--xla_allow_excess_precision=false`` the JAX package keeps
+    every bfloat16 rounding inside its fused programs."""
+    jres, _, _ = japi.run(params(JParams, "HMG-global", "bfloat16", "float", r=r))
+    tres, _, levels = tapi.run(params(TParams, "HMG-global", "bfloat16", "float", r=r), "cpu")
+    print(f"r={r}: JAX package {jres.n_iterations} iterations, port {tres.solve_iterations}")
+    tmg = dataclasses.replace(tres.mg, smoothers=copy_intervals(tres.mg.smoothers, jres.mg.smoothers))
+    fine = levels[-1]
+    b = np.random.default_rng(7).standard_normal(fine.dofh.n_dofs)
+    x = fine.fmt.from_global(b) * fine.op.constrained_keep.double().numpy()
+    for stage, n in v_cycle_stages(jres.mg, tmg, x).items():
+        print(f"r={r} {stage}: {n} slots differ", flush=True)
+
+
 if __name__ == "__main__":
+    import sys
+
     jax.config.update("jax_enable_x64", True)
-    bf16_counts()
+    if len(sys.argv) > 1 and sys.argv[1] == "stages":
+        bf16_stages(int(sys.argv[2]))
+    else:
+        bf16_counts()

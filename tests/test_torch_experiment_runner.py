@@ -3,9 +3,9 @@
 ``small-scaling quadrant --max-ref 3`` on the CPU takes the TPU record's
 iteration counts (4, 4, 4, 4; results/small-scaling-quadrant-tpu-merged.txt)
 and leaves an artifact whose first line names the device, the commit and
-the date and whose rows end with a ``device`` column; a sharded config
-fails naming ROADMAP item 13 on a ``# FAILED`` line; without a card the
-default device raises.  The record comparison reads a results table by its
+the date and whose rows end with a ``device`` column; sharded configs
+(NShards 2) run over two gloo ranks with the record's counts; without a
+card the default device raises.  The record comparison reads a results table by its
 header's column offsets (an empty identity cell is not compared).
 """
 
@@ -35,14 +35,22 @@ def test_small_scaling_r3_equals_the_tpu_record(tmp_path):
     assert text[-1].endswith("4 equal, 0 differs, 0 ambiguous, 0 none")
 
 
-def test_sharded_config_fails_naming_item_13(tmp_path, capsys):
+def test_sharded_configs_run_with_record_counts(tmp_path, capsys):
+    """``large_scaling quadrant 2`` (NShards 2, once NotImplementedError)
+    runs its four r=4 rows over two gloo ranks each, with the r=4 counts of
+    results/large-scaling-partitioning-virtual8.txt for the same type and
+    degree."""
     out = tmp_path / "ls.txt"
     rc = rx.main(["large_scaling", "quadrant", "2", "--max-ref", "4", "--device", "cpu",
                   "--out", str(out)])
-    assert rc == 1
-    failed = [ln for ln in out.read_text().splitlines() if ln.startswith("# FAILED ")]
-    assert len(failed) == 4 and all("NotImplementedError" in ln and "item 13" in ln for ln in failed)
-    assert "0 ran, 4 failed" in capsys.readouterr().out
+    assert rc == 0
+    rows = rx.parse_tables(out.read_text())
+    assert not [ln for ln in out.read_text().splitlines() if ln.startswith("# FAILED ")]
+    want = {("HMG-local", "1"): 5, ("HMG-global", "1"): 4, ("HMG-local", "4"): 4,
+            ("HMG-global", "4"): 3}
+    assert len(rows) == 4
+    assert {(r["type"], r["degree"]): int(r["n_iterations"]) for r in rows} == want
+    assert "4 ran, 0 failed" in capsys.readouterr().out
 
 
 def test_default_device_needs_a_card(tmp_path):

@@ -85,17 +85,16 @@ def test_dim2_solves_on_the_gather_engine():
     assert res.x.shape == (levels[-1].dofh.n_dofs,) and res.n_levels == len(levels)
 
 
-@pytest.mark.parametrize(
-    "field,value,item",
-    [
-        ("n_shards", 2, "item 13"),
-    ],
-)
-def test_unported_configurations_name_their_roadmap_item(field, value, item):
+@pytest.mark.parametrize("field,value", [("n_shards", 2)])
+def test_two_shards_solve_equals_one(field, value):
+    """n_shards=2 (ROADMAP item 13, once a NotImplementedError) solves over
+    two gloo ranks and equals the one-rank solve."""
+    one, _, _ = tapi.run(params(TParams, 2, 2), "cpu")
     prm = params(TParams, 2, 2)
     setattr(prm, field, value)
-    with pytest.raises(NotImplementedError, match=item):
-        tapi.run(prm, "cpu")
+    two, _, _ = tapi.run(prm, "cpu")
+    assert two.n_shards == value and two.n_iterations == one.n_iterations
+    assert float(torch.linalg.norm(two.x - one.x) / torch.linalg.norm(one.x)) <= 1e-12
 
 
 def test_bfloat16_levels_solve_converges():
