@@ -22,11 +22,11 @@
 // 2 NP S^3 values, 73.6 MB in bf16, 147.2 MB in f32 and 294.4 MB in f64 at
 // NP = 512, S = 33, i.e. 22.0 us, 43.9 us and 87.9 us at 3.35 TB/s.  The
 // band work at p = 4 is about 1.5 GFLOP (22 us of FP32 FMA at 67 TFLOP/s),
-// so the f32 and f64 kernels are bound by device memory (the bf16 one, on
-// FP32 FMA, by both alike); on the way there it is held by instruction throughput and
-// latency (the 63 band FMAs of a point come with shared-memory loads,
-// copies and index arithmetic; PERF.md has the measurements).  What each
-// design choice does about that:
+// so the f32 and f64 kernels are bound by device memory and the bf16 one by
+// FP32 FMA and bytes alike.  All three run at several times that bound, held
+// by instruction issue and latency: the 63 band FMAs of a point come with
+// shared-memory loads, copies and index arithmetic (PERF.md has the
+// measurements).  What each design choice does about that:
 //
 //  * Band, passed from set-up.  The kernel is a template on `band` (1..8);
 //    every contraction does only the 2 band + 1 products of a row.  The
@@ -66,26 +66,40 @@
 //    allocates only out.
 //
 //  * bfloat16.  The storage type G (u, KS, MS, pscale and out in device
-//    memory) is separate from the compute type T: bfloat16 values are
-//    converted to float32 as they enter shared memory and registers, every
-//    contraction accumulates in FP32 FMA, and out rounds to bfloat16 once,
-//    to nearest, at the store.  Only device traffic halves; the staging is
-//    the float32 kernel's.  cp.async copies raw bytes of at least 4, and a
-//    bfloat16 plane row is only 2-byte aligned, so a bfloat16 plane is read
-//    into registers one plane step before it is converted and stored into
-//    its float32 ring slot, which keeps its loads in flight across that
-//    step's contractions.
+//    memory) is separate from the compute type T = float: every contraction
+//    is the float32 kernel's, FMA for FMA in the same order, and out rounds
+//    to bfloat16 once, to nearest, at the store.  So the bf16 instance gives
+//    bit for bit the f32 instance's result on the same values widened to
+//    float32, rounded once.  Its u tiles stay bfloat16 in the ring (half
+//    the bytes of a float32 tile), kHalfStages slots deep, filled by
+//    cp.async; the z contraction converts each value as it reads it
+//    (converting each landed value once, into float32 tiles one plane step
+//    ahead, costs a shared store and load per value and was slower:
+//    PERF.md).  A bfloat16 plane row is only 2-byte aligned (S^2 and S^3
+//    are odd) and cp.async copies at least 4 bytes from an address aligned
+//    to them, so each row is copied as the S / 2 + 1 aligned 4-byte words
+//    that cover it, into a tile row placed where each value keeps its
+//    device address's parity; a word that would reach past the row's end
+//    takes only the row's bytes and is zero-filled.  No copy reads outside
+//    the tensor's allocation: the only value read outside a row is the one
+//    before an odd-aligned row, which shares its aligned 4-byte word with
+//    the row's first value (allocations are at least 4-byte aligned); it
+//    lands in the pad before the row, which is cleared once the plane has
+//    landed, so the pads stay zero.
 //
-// Plain FP32/FP64 FMA throughout; no TF32, no tensor cores.  Launches go on
-// the caller's stream and never synchronise; each entry point returns
-// cudaGetLastError() so a refused launch is reported to the wrapper.
+// Plain FP32/FP64 FMA throughout; no TF32, no tensor cores (a bfloat16
+// design with the z and y contractions on the tensor cores, each product
+// kept exact by a three-term split, ran no faster: PERF.md says why).
+// Launches go on the caller's stream and never synchronise; each entry
+// point returns cudaGetLastError() so a refused launch is reported to the
+// wrapper.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstddef>
-#include <type_traits>
+#include <cstdint>
 
 namespace {
 
@@ -125,6 +139,9 @@ struct Traits<double> {
   using T2 = double2;
   static constexpr int kStages = 4;
 };
+// bfloat16 u tiles in the cp.async ring (even: a slot's parity shift is
+// then the same for every plane it holds)
+constexpr int kHalfStages = 8;
 
 template <int N>
 __device__ __forceinline__ void cp_async(void* dst, const void* src) {
@@ -134,6 +151,12 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src) {
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// 4 bytes of which the first src_bytes (0, 2 or 4) come from src, the rest zero
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes)
+               : "memory");
 }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -150,8 +173,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // values that are never read.  Item q = (row r, chunk c of R z outputs), r
 // fastest: a warp's lanes read one or two coefficient rows (broadcast), and
 // the host picks SP so that their window rows fall in distinct banks.
-template <typename T, int B, int R>
-__device__ __forceinline__ void z_phase(const T* __restrict__ src, T* __restrict__ am,
+template <typename T, typename U, int B, int R>
+__device__ __forceinline__ void z_phase(const U* __restrict__ src, T* __restrict__ am,
                                         T* __restrict__ ak,
                                         const typename Traits<T>::T2* __restrict__ bc,
                                         int S, int SP, int P, int nrows, int items) {
@@ -161,10 +184,10 @@ __device__ __forceinline__ void z_phase(const T* __restrict__ src, T* __restrict
   for (int q = threadIdx.x; q < items; q += blockDim.x) {
     const int c = q / nrows;
     const int r = q - c * nrows;
-    const T* s0 = src + r * SP + c * R;
+    const U* s0 = src + r * SP + c * R;
     T w[kWin];
 #pragma unroll
-    for (int j = 0; j < kWin; ++j) w[j] = s0[j];
+    for (int j = 0; j < kWin; ++j) w[j] = to_compute(s0[j]);
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       // rows past S give values that are never read
@@ -187,12 +210,12 @@ __device__ __forceinline__ void z_phase(const T* __restrict__ src, T* __restrict
 // does the z contraction of the z item whose chunk has the same R matrix
 // rows (u window at urow, results to amw, akw, P apart), so each
 // coefficient pair is fetched once for both.
-template <typename T, int B, int R, bool kYRegs, bool kZ>
+template <typename T, typename U, int B, int R, bool kYRegs, bool kZ>
 __device__ __forceinline__ void yz_columns(const T* __restrict__ amn, const T* __restrict__ akn,
                                            const typename Traits<T>::T2* __restrict__ bc,
                                            int S, int yb, const T (&ycm)[R][2 * B + 1],
                                            const T (&yck)[R][2 * B + 1], T (&C)[R],
-                                           T (&D)[R], const T* __restrict__ urow,
+                                           T (&D)[R], const U* __restrict__ urow,
                                            T* __restrict__ amw, T* __restrict__ akw, int P) {
   using T2 = typename Traits<T>::T2;
   constexpr int W = 2 * B + 1;
@@ -203,7 +226,7 @@ __device__ __forceinline__ void yz_columns(const T* __restrict__ amn, const T* _
   for (int j = 0; j < R + 2 * B; ++j) {
     const T a = amn[j];
     const T k = akn[j];
-    const T w = kZ ? urow[j] : T(0);
+    const T w = kZ ? to_compute(urow[j]) : T(0);
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       const int d = j - i;
@@ -288,10 +311,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
                   G* __restrict__ out, const Geometry geo) {
   using T = typename Compute<G>::T;
   using T2 = typename Traits<T>::T2;
-  constexpr bool kAsync = std::is_same<G, T>::value;  // else bfloat16 via registers
-  constexpr int kPre = 4;  // rows of a bfloat16 plane a thread holds in registers
+  // bfloat16: u tiles stay bfloat16, copied as aligned 4-byte words
+  constexpr bool kHalf = sizeof(G) == 2;
   constexpr int W = 2 * B + 1;
-  constexpr int kStages = Traits<T>::kStages;
+  constexpr int kStages = kHalf ? kHalfStages : Traits<T>::kStages;
   // a thread's y coefficients live in registers for the whole slab where
   // they take at most 27 words (float at R = 3 up to band 4); else they are
   // re-read per plane
@@ -318,16 +341,17 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T2* bc = reinterpret_cast<T2*>(smem_raw);   // [S][W]: (MS, KS)[r][r - B + d]
   T2* xc = bc + S * W;                         // [S][W]: (KS, MS)[x - B + d][x]
-  T* ring = reinterpret_cast<T*>(xc + S * W);  // [kStages][pitch_u] u tiles
-  T* am = ring + kStages * geo.pitch_u;        // [2][pitch_a]
-  T* ak = am + 2 * geo.pitch_a;                // [2][pitch_a]
+  G* ring = reinterpret_cast<G*>(xc + S * W);                 // [kStages][pitch_u] u tiles
+  T* am = reinterpret_cast<T*>(ring + kStages * geo.pitch_u);  // [2][pitch_a]
+  T* ak = am + 2 * geo.pitch_a;                                // [2][pitch_a]
   // local AM / AK row of y = zr0
   const int am_row0 = zr0 - y0 + B;
 
   // zero pads and halo rows once; cp.async and the z phase then write only
   // the rows and columns that hold data
   {
-    const int n4 = (kStages * geo.pitch_u + 4 * geo.pitch_a) * sizeof(T) / 16;
+    const int n4 = kHalf ? (kStages * geo.pitch_u * sizeof(G) + 4 * geo.pitch_a * sizeof(T)) / 16
+                         : (kStages * geo.pitch_u + 4 * geo.pitch_a) * sizeof(T) / 16;
     float4* z4 = reinterpret_cast<float4*>(ring);
     for (int i = threadIdx.x; i < n4; i += blockDim.x) z4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
@@ -351,44 +375,50 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   // rows cy, cy + nch, ... (neighbouring threads, neighbouring addresses)
   const int nch = blockDim.x / S;
   const G* usrc = u + static_cast<size_t>(p) * SS * S + static_cast<size_t>(zr0) * S + zc;
+  // bfloat16: plane n's tile starts shift(n) values into its slot, so that
+  // each value keeps its device address's parity (SP has the parity of S);
+  // with kStages even a slot's shift never changes.  Row r is copied as the
+  // words k = 0 .. S / 2 of values 2 k - (its parity) and the next.
+  // (float32 and float64 fold all of this to constants)
+  const int sh0 = kHalf ? static_cast<int>(((reinterpret_cast<uintptr_t>(
+                              usrc - zc + static_cast<size_t>(xi0) * SS) >> 1) + B) & 1)
+                        : 0;
+  auto shift = [&](int n) { return kHalf ? sh0 ^ (n & static_cast<int>(SS) & 1) : 0; };
+  auto tile = [&](int n) { return ring + (n % kStages) * geo.pitch_u + shift(n); };
+  const int nw = kHalf ? S / 2 + 1 : 1;
+  // this thread's first (row, word) of a plane's nzr x nw words, and its
+  // stride through them
+  const int w_r0 = kHalf ? threadIdx.x / nw : 0, w_k0 = kHalf ? threadIdx.x % nw : 0;
+  const int w_dr = kHalf ? blockDim.x / nw : 0, w_dk = kHalf ? blockDim.x % nw : 0;
   auto load_plane = [&](int n) {
-    const G* src = usrc + static_cast<size_t>(xi0 + n) * SS;
-    T* dst = ring + (n % kStages) * geo.pitch_u + B + zc;
-    for (int r = cy; r < nzr; r += nch) cp_async<sizeof(T)>(dst + r * SP, src + r * S);
-  };
-  // bfloat16: fetch_plane reads this thread's first kPre rows of plane n
-  // into registers; put_plane stores them, converted, into the plane's slot,
-  // with any further rows read there and then
-  G pre[kPre];
-  auto fetch_plane = [&](int n) {
-    const G* src = usrc + static_cast<size_t>(xi0 + n) * SS;
-#pragma unroll
-    for (int k = 0; k < kPre; ++k) {
-      const int r = cy + k * nch;
-      if (r < nzr) pre[k] = src[r * S];
+    if constexpr (kHalf) {
+      const G* src = usrc - zc + static_cast<size_t>(xi0 + n) * SS;
+      G* dst = tile(n) + B;
+      for (int r = w_r0, k = w_k0; r < nzr;) {
+        const G* row = src + r * S;
+        const int e = 2 * k - static_cast<int>((reinterpret_cast<uintptr_t>(row) >> 1) & 1);
+        if (e < S) cp_async4_zfill(dst + r * SP + e, row + e, 2 * min(2, S - e));
+        r += w_dr;
+        k += w_dk;
+        if (k >= nw) k -= nw, ++r;
+      }
+    } else {
+      const G* src = usrc + static_cast<size_t>(xi0 + n) * SS;
+      T* dst = tile(n) + B + zc;
+      for (int r = cy; r < nzr; r += nch) cp_async<sizeof(T)>(dst + r * SP, src + r * S);
     }
   };
-  auto put_plane = [&](int n) {
-    const G* src = usrc + static_cast<size_t>(xi0 + n) * SS;
-    T* dst = ring + (n % kStages) * geo.pitch_u + B + zc;
-#pragma unroll
-    for (int k = 0; k < kPre; ++k) {
-      const int r = cy + k * nch;
-      if (r < nzr) dst[r * SP] = to_compute(pre[k]);
-    }
-    for (int r = cy + kPre * nch; r < nzr; r += nch) dst[r * SP] = to_compute(src[r * S]);
+  // bfloat16: zero the pad value before each row of plane n, where the word
+  // of an odd-aligned row put the value before it (after a barrier that
+  // follows every thread's wait for the plane)
+  auto clear_heads = [&](int n) {
+    unsigned short* dst = reinterpret_cast<unsigned short*>(tile(n) + B - 1);
+    for (int r = threadIdx.x; r < nzr; r += blockDim.x) dst[r * SP] = 0;
   };
 
 #pragma unroll 1
   for (int n = 0; n < kStages - 1; ++n) {
-    if (n < nplanes) {
-      if constexpr (kAsync) {
-        load_plane(n);
-      } else {
-        fetch_plane(n);
-        put_plane(n);
-      }
-    }
+    if (n < nplanes) load_plane(n);
     cp_async_commit();
   }
 
@@ -417,49 +447,48 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const int zoff_u = zc * SP + cy * R;
   const int zoff_a = cy * R * P + am_row0 + zc;
 
-  cp_async_wait<kStages - 2>();
+  if constexpr (kHalf) {
+    cp_async_wait<kStages - 3>();
+    __syncthreads();  // planes 0 and 1 have landed
+    clear_heads(0);
+    clear_heads(1);
+  } else {
+    cp_async_wait<kStages - 2>();
+  }
   __syncthreads();  // plane 0 is in shared memory
-  z_phase<T, B, R>(ring, am + am_row0, ak + am_row0, bc, S, SP, P, nzr, items);
+  z_phase<T, G, B, R>(tile(0), am + am_row0, ak + am_row0, bc, S, SP, P, nzr, items);
 
   // unrolled, the ring shifts by register renaming in two planes of every three
 #pragma unroll 3
   for (int n = 0; n < nplanes; ++n) {
-    cp_async_wait<kStages - 3>();
+    // bfloat16 waits one plane further ahead: plane n + 2 is cleared here
+    cp_async_wait<kStages - 3 - kHalf>();
     __syncthreads();  // AM/AK of plane n and u of plane n + 1 are visible
-    const bool ahead = n + kStages - 1 < nplanes;
-    if (ahead) {
-      if constexpr (kAsync) {
-        load_plane(n + kStages - 1);
-      } else {
-        fetch_plane(n + kStages - 1);
-      }
+    if constexpr (kHalf) {
+      if (n + 2 < nplanes) clear_heads(n + 2);
     }
+    if (n + kStages - 1 < nplanes) load_plane(n + kStages - 1);
     cp_async_commit();
     const int bn = (n & 1) * geo.pitch_a, bz = ((n + 1) & 1) * geo.pitch_a;
     T C[R], D[R];
     if (fused) {
       // past the last plane the z item reads a stale slot and writes an
       // unread buffer
-      yz_columns<T, B, R, kYRegs, true>(am + bn + yoff, ak + bn + yoff, bc, S, yb, ycm, yck, C, D,
-                                     ring + ((n + 1) % kStages) * geo.pitch_u + zoff_u,
-                                     am + bz + zoff_a, ak + bz + zoff_a, P);
+      yz_columns<T, G, B, R, kYRegs, true>(am + bn + yoff, ak + bn + yoff, bc, S, yb, ycm, yck, C,
+                                           D, tile(n + 1) + zoff_u, am + bz + zoff_a,
+                                           ak + bz + zoff_a, P);
     } else {
       if (n + 1 < nplanes)
-        z_phase<T, B, R>(ring + ((n + 1) % kStages) * geo.pitch_u, am + bz + am_row0,
-                      ak + bz + am_row0, bc, S, SP, P, nzr, items);
-      yz_columns<T, B, R, kYRegs, false>(am + bn + yoff, ak + bn + yoff, bc, S, yb, ycm, yck, C, D,
-                                      nullptr, nullptr, nullptr, P);
+        z_phase<T, G, B, R>(tile(n + 1), am + bz + am_row0, ak + bz + am_row0, bc, S, SP, P,
+                            nzr, items);
+      yz_columns<T, G, B, R, kYRegs, false>(am + bn + yoff, ak + bn + yoff, bc, S, yb, ycm, yck,
+                                            C, D, nullptr, nullptr, nullptr, P);
     }
     const int x = xi0 + n, o = x - B;
     const bool store = o >= x0 && o < x1;
     x_step<T, G, B, R, true>(acc, C, D, xc + x * W, store,
                              store ? obase + static_cast<size_t>(o) * SS : nullptr, S, nvalid,
                              scale);
-    // slot (n - 1) % kStages was last read in step n - 2, and plane
-    // n + kStages - 1 is first read in step n + kStages - 2, after a barrier
-    if constexpr (!kAsync) {
-      if (ahead) put_plane(n + kStages - 1);
-    }
   }
   // planes past the patch's end contribute nothing: store the rest of the ring
   const T none[R] = {};
@@ -479,16 +508,17 @@ int g_nsm[kMaxDevices];
 int g_smem_optin[kMaxDevices];
 
 // Largest number of distinct shared-memory words that one bank serves in
-// one access of a warp whose lane q (of `count`) reads word addr(q)
-// (32 banks of 4 bytes; 8-byte values go as half-warps).
+// one access of a warp whose lane q (of `count`) reads value addr(q) of
+// type T (32 banks of 4 bytes; 8-byte values go as half-warps, 2-byte
+// values share a word).
 template <typename T, typename F>
 int bank_conflicts(int count, F addr) {
-  constexpr int lanes = sizeof(T) == 4 ? 32 : 16;
+  constexpr int lanes = sizeof(T) == 8 ? 16 : 32;
   int worst = 1;
   for (int w0 = 0; w0 < count; w0 += lanes) {
     int seen[32], n = 0, per_bank[32] = {0};
     for (int q = w0; q < std::min(w0 + lanes, count); ++q) {
-      const int a = addr(q);
+      const int a = sizeof(T) == 2 ? addr(q) / 2 : addr(q);
       bool dup = false;
       for (int k = 0; k < n; ++k) dup = dup || seen[k] == a;
       if (!dup) {
@@ -500,17 +530,19 @@ int bank_conflicts(int count, F addr) {
   return worst;
 }
 
-template <typename T, int B>
+template <typename G, int B>
 size_t smem_bytes(const Geometry& g) {
+  using T = typename Compute<G>::T;
+  constexpr size_t kStages = sizeof(G) == 2 ? kHalfStages : Traits<T>::kStages;
   return 2 * static_cast<size_t>(g.S) * (2 * B + 1) * sizeof(typename Traits<T>::T2) +
-         (static_cast<size_t>(Traits<T>::kStages) * g.pitch_u + 4 * static_cast<size_t>(g.pitch_a)) *
-             sizeof(T);
+         kStages * g.pitch_u * sizeof(G) + 4 * static_cast<size_t>(g.pitch_a) * sizeof(T);
 }
 
 // Block geometry for S; the AM / AK pitch keeps shared memory within
 // max_smem where it can (the caller checks smem_bytes).
-template <typename T, int B, int R>
+template <typename G, int B, int R>
 Geometry make_geometry(int S, size_t max_smem) {
+  using T = typename Compute<G>::T;
   Geometry g;
   g.S = S;
   g.ncz = (S + R - 1) / R;
@@ -525,14 +557,23 @@ Geometry make_geometry(int S, size_t max_smem) {
   const int items = std::min(threads, g.ncz * rows);
   // u tile rows: B zero columns, S values, zeros to ncz R + B; of the 32
   // smallest pitches, the one with the fewest bank conflicts in the z window
-  const int sp0 = g.ncz * R + 2 * B;
+  // (bfloat16: pitches of the parity of S, for a tile that starts 0 or 1
+  // value into its slot, and slots of whole 16-byte words)
+  constexpr bool kHalf = sizeof(G) == 2;
+  const int sp0 = g.ncz * R + 2 * B + (kHalf ? (g.ncz * R + 2 * B - S) & 1 : 0);
+  auto tile_pitch = [&](int sp) {
+    return kHalf ? (rows * sp + 1 + 7) / 8 * 8 : (rows * sp + 3) / 4 * 4;
+  };
   int best_sp = 1 << 30;
   g.SP = sp0;
-  for (int sp = sp0; sp < sp0 + 32; ++sp) {
-    const int c = bank_conflicts<T>(items, [&](int q) { return (q % rows) * sp + (q / rows) * R; });
+  for (int sp = sp0; sp < sp0 + 32; sp += kHalf ? 2 : 1) {
+    int c = 0;
+    for (int sh = 0; sh <= (kHalf ? 1 : 0); ++sh)
+      c = std::max(c, bank_conflicts<G>(
+                          items, [&](int q) { return sh + (q % rows) * sp + (q / rows) * R; }));
     if (c < best_sp) best_sp = c, g.SP = sp;
   }
-  g.pitch_u = (rows * g.SP + 3) / 4 * 4;
+  g.pitch_u = tile_pitch(g.SP);
   // of the 32 smallest AM / AK pitches, the one with the fewest bank
   // conflicts between a warp's lanes (y reads and z writes)
   int best = 1 << 30;
@@ -543,10 +584,10 @@ Geometry make_geometry(int S, size_t max_smem) {
     if (std::max(cy, cz) < best) best = std::max(cy, cz), g.P = pa;
   }
   g.pitch_a = (g.ncz * R * g.P + 3) / 4 * 4;
-  if (smem_bytes<T, B>(g) > max_smem) {
+  if (smem_bytes<G, B>(g) > max_smem) {
     g.SP = sp0;
     g.P = g.am_rows;
-    g.pitch_u = (rows * g.SP + 3) / 4 * 4;
+    g.pitch_u = tile_pitch(g.SP);
     g.pitch_a = (g.ncz * R * g.P + 3) / 4 * 4;
   }
   return g;
@@ -555,7 +596,6 @@ Geometry make_geometry(int S, size_t max_smem) {
 template <typename G, int B, int R>
 int launch_rows(const void* u, const void* KS, const void* MS, const void* pscale, void* out,
                 int NP, int S, int device, void* stream) {
-  using T = typename Compute<G>::T;
   // geometry and occupancy depend on S only: computed once per S
   struct Cached {
     Geometry geo;
@@ -565,8 +605,8 @@ int launch_rows(const void* u, const void* KS, const void* MS, const void* pscal
   static Cached cache[kMaxThreads + 1];
   Cached& c = cache[S];
   if (c.occ == 0) {
-    c.geo = make_geometry<T, B, R>(S, g_smem_optin[device]);
-    c.smem = smem_bytes<T, B>(c.geo);
+    c.geo = make_geometry<G, B, R>(S, g_smem_optin[device]);
+    c.smem = smem_bytes<G, B>(c.geo);
     c.threads = c.geo.H / R * S;
     if (c.smem > static_cast<size_t>(g_smem_optin[device]))
       return static_cast<int>(cudaErrorInvalidValue);

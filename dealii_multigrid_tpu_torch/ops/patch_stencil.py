@@ -68,9 +68,12 @@ launches = LaunchCounter()
 
 
 class _Library:
-    """The compiled kernel library (built once per process, on first use)."""
+    """A compiled kernel library (built once per process, on first use) of
+    ``source`` with nvcc ``flags``, into BUILD_DIR under ``source_tag``."""
 
-    def __init__(self) -> None:
+    def __init__(self, source: str = SOURCE, flags: tuple = NVCC_FLAGS) -> None:
+        self.source = source
+        self.flags = tuple(flags)
         self.lib: ctypes.CDLL | None = None
         self.path: str | None = None
         self.build_seconds = 0.0
@@ -95,9 +98,7 @@ class _Library:
         return cand
 
     def _load(self) -> None:
-        with open(SOURCE, "rb") as f:
-            tag = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-        path = os.path.join(BUILD_DIR, f"libpatch_stencil_{tag}.so")
+        path = self.target()
         t0 = time.perf_counter()
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
@@ -105,13 +106,13 @@ class _Library:
             os.close(fd)
             try:
                 proc = subprocess.run(
-                    [self._nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+                    [self._nvcc(), *self.flags, "-o", tmp, self.source],
                     capture_output=True, text=True, timeout=600,
                 )
                 self.build_log = proc.stdout + proc.stderr
                 if proc.returncode != 0:
                     raise RuntimeError(
-                        f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{self.build_log}"
+                        f"nvcc failed ({proc.returncode}) on {self.source}:\n{self.build_log}"
                     )
                 os.replace(tmp, path)
             finally:
@@ -134,6 +135,10 @@ class _Library:
         self.path = path
         self.lib = lib
 
+    def target(self) -> str:
+        """The library's path: a changed source or flag builds anew."""
+        return os.path.join(BUILD_DIR, f"libpatch_stencil_{source_tag(self.source, self.flags)}.so")
+
     def for_device(self, device: int) -> ctypes.CDLL:
         """The library, initialised for ``device`` (once per card)."""
         lib = self.get()
@@ -141,6 +146,12 @@ class _Library:
             _raise_on(lib, lib.patch_stencil_init(device), "initialisation")
             self.ready_devices.add(device)
         return lib
+
+
+def source_tag(source: str = SOURCE, flags: tuple = NVCC_FLAGS) -> str:
+    """12 hex digits of the SHA-1 of the source and the nvcc flags."""
+    with open(source, "rb") as f:
+        return hashlib.sha1(f.read() + " ".join(flags).encode()).hexdigest()[:12]
 
 
 library = _Library()

@@ -1,8 +1,8 @@
 """Run one sweep of ``scripts/`` on the port and leave its table on disk.
 
     python -m dealii_multigrid_tpu_torch.tools.run_experiment <generator> [args]
-        [--max-ref N] [--budget-s S] [--out PATH] [--device cuda|cpu]
-        [--against RECORD ...] [--commit TEXT]
+        [--max-ref N] [--degree P ...] [--repetitions N] [--budget-s S]
+        [--out PATH] [--device cuda|cpu] [--against RECORD ...] [--commit TEXT]
 
 The port's counterpart of ``experiments/run_experiment.py``.  The generator
 (a file of ``scripts/``, named with dashes or underscores; the remaining
@@ -11,7 +11,10 @@ temporary directory, with ``scripts/`` on ``PYTHONPATH``; each file goes
 through ``cli.run_config`` on one device in this process, and the
 cumulative table is rewritten after every config.
 
-``--max-ref`` leaves out configs with NRefGlobal above N; ``--budget-s``
+``--max-ref`` leaves out configs with NRefGlobal above N; ``--degree``
+(repeatable) keeps only configs of those fine degrees; ``--repetitions``
+sets every config's NRepetitions (the timed solves after the warm-up;
+the counts do not depend on it); ``--budget-s``
 leaves out the configs after the wall-clock budget is spent; a config that
 raises loses its row.  Each of these lands on a ``#`` line of the artifact.
 A config with ``NShards`` above 1 runs domain-decomposed over that many
@@ -203,6 +206,7 @@ class Sweep:
     ran: list = field(default_factory=list)         # (config, seconds)
     failed: list = field(default_factory=list)      # "config: error"
     skipped_ref: list = field(default_factory=list)
+    skipped_degree: list = field(default_factory=list)
     skipped_budget: list = field(default_factory=list)
     verdicts: list = field(default_factory=list)    # (record, config, verdict, text)
     partitions: list = field(default_factory=list)  # (record, config, verdict, text)
@@ -215,6 +219,7 @@ def run_experiment(
     experiment: str, gen_args: list[str], device: str | torch.device | None = None,
     out: str | None = None, max_ref: int | None = None, budget_s: float = 1800.0,
     against: list[str] | None = None, commit: str | None = None,
+    degrees: list[int] | None = None, repetitions: int | None = None,
 ) -> Sweep:
     """Generate the sweep, run every config, write the artifact; returns
     what happened."""
@@ -247,6 +252,9 @@ def run_experiment(
             f.write(buf.getvalue())
             if sweep.skipped_ref:
                 f.write(f"# SKIPPED (--max-ref {max_ref}): {', '.join(sweep.skipped_ref)}\n")
+            if sweep.skipped_degree:
+                f.write(f"# SKIPPED (--degree {' '.join(map(str, degrees))}): "
+                        f"{', '.join(sweep.skipped_degree)}\n")
             if sweep.skipped_budget:
                 f.write(f"# SKIPPED (budget {budget_s:.0f} s spent): "
                         f"{', '.join(sweep.skipped_budget)}\n")
@@ -271,9 +279,14 @@ def run_experiment(
         if max_ref is not None and params.n_ref_global > max_ref:
             sweep.skipped_ref.append(name)
             continue
+        if degrees and params.fe_degree_fine not in degrees:
+            sweep.skipped_degree.append(name)
+            continue
         if time.time() - t0 > budget_s and sweep.ran:
             sweep.skipped_budget.append(name)
             continue
+        if repetitions is not None:
+            params.mg_data.n_repetitions = repetitions
         t_cfg = time.time()
         n_rows = len(table.rows)
         try:
@@ -316,6 +329,10 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--budget-s", type=float, default=1800.0)
     ap.add_argument("--max-ref", type=int, default=None,
                     help="leave out configs with NRefGlobal above this")
+    ap.add_argument("--degree", type=int, action="append", default=None,
+                    help="keep only configs of this fine degree (repeatable)")
+    ap.add_argument("--repetitions", type=int, default=None,
+                    help="every config's NRepetitions (timed solves after the warm-up)")
     ap.add_argument("--device", default=None, help="cuda (the default: cuda:0) or cpu")
     ap.add_argument("--against", action="append", default=[],
                     help="a results table to hold the iteration counts to (repeatable)")
@@ -325,13 +342,14 @@ def main(argv: list[str] | None = None) -> int:
     device = "cuda:0" if args.device in (None, "cuda") else args.device
     sweep = run_experiment(
         args.experiment, args.gen_args, device, args.out, args.max_ref, args.budget_s,
-        args.against, args.commit,
+        args.against, args.commit, args.degree, args.repetitions,
     )
     for rec, cfg, _, text in sweep.verdicts + sweep.partitions:
         print(f"{os.path.relpath(rec, REPO)}: {cfg} {text}")
     n_part = {v: sum(w == v for _, _, w, _ in sweep.partitions) for v in ("equal", "differ", "none")}
     print(f"{sweep.out_path}: {len(sweep.ran)} ran, {len(sweep.failed)} failed, "
-          f"{len(sweep.skipped_ref)} skipped by --max-ref, {len(sweep.skipped_budget)} by the "
+          f"{len(sweep.skipped_ref)} skipped by --max-ref, {len(sweep.skipped_degree)} by "
+          f"--degree, {len(sweep.skipped_budget)} by the "
           f"budget; against records: "
           + ", ".join(f"{sweep.count(v)} {v}" for v in VERDICTS)
           + (f"; sharded rows' partitions: {n_part['equal']} equal, {n_part['differ']} differ, "

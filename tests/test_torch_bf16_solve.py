@@ -289,13 +289,14 @@ def test_phase_x_holds_the_card_to_these_counts():
     assert card == {(t, n): c for t, n, c in JAX_ROUNDED_ONCE}
 
 
-def bf16_counts(refs=(4, 5, 6)) -> None:
+def bf16_counts(refs=(4, 5, 6), jax_max_ref=5) -> None:
     """Counts of HMG-global float/bfloat16 and HPMG mixed/bfloat16 at
     quadrant r in ``refs``, p=4: the port with its plain chain and with the
-    stencil rounded once (the card kernel's rounding) and, at r <= 5, the
-    JAX package with its XLA chain and with the stencil rounded once.
-    Run as ``PYTHONPATH=.:tests python tests/test_torch_bf16_solve.py``
-    (about ten minutes)."""
+    stencil rounded once (the card kernel's rounding) and, at r <=
+    ``jax_max_ref``, the JAX package with its XLA chain and with the
+    stencil rounded once.  Run as ``PYTHONPATH=.:tests python
+    tests/test_torch_bf16_solve.py`` (about ten minutes); ``... counts 6``
+    runs r=6 alone, the JAX package included."""
     for r in refs:
         for mg_type, number in (("HMG-global", "float"), ("HPMG", "mixed")):
             res, _, _ = tapi.run(params(TParams, mg_type, "bfloat16", number, r=r), "cpu")
@@ -304,36 +305,63 @@ def bf16_counts(refs=(4, 5, 6)) -> None:
                 once, _, _ = tapi.run(params(TParams, mg_type, "bfloat16", number, r=r), "cpu")
             line = (f"r={r} {mg_type} {number}/bfloat16: port plain chain {res.solve_iterations}, "
                     f"rounded once {once.solve_iterations}")
-            if r <= 5:
+            if r <= jax_max_ref:
                 jres, _, _ = japi.run(params(JParams, mg_type, "bfloat16", number, r=r))
                 jonce, _, _ = jax_run_rounded_once(params(JParams, mg_type, "bfloat16", number, r=r))
                 line += f"; JAX package XLA chain {jres.n_iterations}, rounded once {jonce.n_iterations}"
             print(line, flush=True)
 
 
-def bf16_stages(r: int) -> None:
+def bf16_stages(r: int, once: bool = False) -> None:
     """HMG-global quadrant r, p=4, bfloat16 levels under float: both
     packages' counts and the slots that differ at each V-cycle stage
-    (``v_cycle_stages``).  Run as ``PYTHONPATH=.:tests python
-    tests/test_torch_bf16_solve.py stages 4``; with
+    (``v_cycle_stages``); with ``once`` both packages' stencils round once,
+    as the card's kernel rounds.  Run as ``PYTHONPATH=.:tests python
+    tests/test_torch_bf16_solve.py stages 4`` (``stages-once 5`` for the
+    stencils rounded once); with
     ``XLA_FLAGS=--xla_allow_excess_precision=false`` the JAX package keeps
     every bfloat16 rounding inside its fused programs."""
+    with pytest.MonkeyPatch.context() as mp:
+        if once:
+            jax.clear_caches()
+            mp.setattr(HybridOperator, "cell_apply_raw", jax_cell_apply_rounded_once)
+            mp.setattr(ps, "patch_stencil_reference", port_stencil_rounded_once)
+        _bf16_stages(r, "rounded once" if once else "plain chains")
+
+
+def _bf16_stages(r: int, what: str) -> None:
     jres, _, _ = japi.run(params(JParams, "HMG-global", "bfloat16", "float", r=r))
     tres, _, levels = tapi.run(params(TParams, "HMG-global", "bfloat16", "float", r=r), "cpu")
-    print(f"r={r}: JAX package {jres.n_iterations} iterations, port {tres.solve_iterations}")
+    print(f"r={r} ({what}): JAX package {jres.n_iterations} iterations, port "
+          f"{tres.solve_iterations}")
     tmg = dataclasses.replace(tres.mg, smoothers=copy_intervals(tres.mg.smoothers, jres.mg.smoothers))
     fine = levels[-1]
     b = np.random.default_rng(7).standard_normal(fine.dofh.n_dofs)
     x = fine.fmt.from_global(b) * fine.op.constrained_keep.double().numpy()
-    for stage, n in v_cycle_stages(jres.mg, tmg, x).items():
+    for stage, n in {**stencil_stages(jres.mg, tmg, x), **v_cycle_stages(jres.mg, tmg, x)}.items():
         print(f"r={r} {stage}: {n} slots differ", flush=True)
+
+
+def stencil_stages(jmg, tmg, x) -> dict:
+    """Slots that differ between the two packages' ``cell_apply_raw`` on
+    the finest level, from the JAX side's ``apply_c`` of x: its patch
+    stencil and its singleton element GEMM apart."""
+    jop, top = jmg.operators[-1], tmg.operators[-1]
+    jc = jax.jit(lambda o, v: o.apply_c(v))(jop, jnp.asarray(x, jnp.bfloat16))
+    want = np.asarray(jax.jit(lambda o, v: o.cell_apply_raw(v))(jop, jc), np.float64)
+    got = top.cell_apply_raw(torch.as_tensor(np.asarray(jc, np.float64), dtype=torch.bfloat16))
+    diff = want != got.double().numpy()
+    return {"fine stencil (patches)": int(diff[: top.patch_slots].sum()),
+            "fine element GEMM (singletons)": int(diff[top.patch_slots:].sum())}
 
 
 if __name__ == "__main__":
     import sys
 
     jax.config.update("jax_enable_x64", True)
-    if len(sys.argv) > 1 and sys.argv[1] == "stages":
-        bf16_stages(int(sys.argv[2]))
+    if len(sys.argv) > 1 and sys.argv[1] in ("stages", "stages-once"):
+        bf16_stages(int(sys.argv[2]), once=sys.argv[1] == "stages-once")
+    elif len(sys.argv) > 1 and sys.argv[1] == "counts":
+        bf16_counts(refs=(int(sys.argv[2]),), jax_max_ref=int(sys.argv[2]))
     else:
         bf16_counts()

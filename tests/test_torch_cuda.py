@@ -397,6 +397,48 @@ def test_bf16_kernel_is_one_rounding_of_float64(cuda, NP, S):
     assert float((got.double() - plain).abs().max()) <= 2e-2 * float(plain.abs().max())
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("S", [3, 4, 5, 8, 9, 17, 33, 65])
+def test_bf16_kernel_is_the_f32_kernel_rounded_once(cuda, S, offset):
+    """The bfloat16 instance does the float32 instance's arithmetic and
+    rounds once: on a view that starts at element 0 or 1 of a larger buffer
+    (rows at either 4-byte alignment), for every band below S up to 8, it
+    equals bit for bit the f32 kernel on the same values widened to float32
+    and rounded once to bfloat16; with NaN, +Inf and -Inf in u it equals it
+    NaN for NaN and value for value elsewhere.  Without them it also holds
+    chip_smoke.py phase x's constants (2^-8 |ref| + 1e-5 max|ref| of a
+    float64 stencil of its bfloat16 inputs, 2e-2 of max of the plain
+    bfloat16 chain)."""
+    NP = 8 if S < 65 else 3
+    rng = np.random.default_rng(1000 * S + offset)
+    i, j = np.indices((S, S))
+    for band in range(1, min(S - 1, 8) + 1):
+        KS, MS = (torch.as_tensor(np.where(abs(i - j) <= band, rng.standard_normal((S, S)), 0.0),
+                                  dtype=torch.bfloat16, device=cuda) for _ in range(2))
+        sc = torch.as_tensor(rng.uniform(0.5, 2.0, NP), dtype=torch.bfloat16, device=cuda)
+        buf = torch.zeros(NP * S**3 + 2, dtype=torch.bfloat16, device=cuda)
+        xp = buf[offset:offset + NP * S**3].view(NP, S**3)
+        for special in (False, True):
+            xp.copy_(torch.as_tensor(rng.standard_normal((NP, S**3)), dtype=torch.bfloat16))
+            if special:
+                flat = xp.view(-1)
+                for k, v in enumerate((float("nan"), float("inf"), -float("inf"))):
+                    flat[(k + 1) * flat.numel() // 5] = v
+            got = ps.patch_stencil(xp, KS, MS, sc, band)
+            want = ps.patch_stencil(*(t.float() for t in (xp, KS, MS, sc)), band).to(torch.bfloat16)
+            nan = torch.isnan(want)
+            assert torch.equal(torch.isnan(got), nan), (S, band, offset, special)
+            assert torch.equal(got[~nan], want[~nan]), (S, band, offset, special)
+            if special:
+                assert 0 < int(nan.sum()) < nan.numel()
+                continue
+            ref64 = ps.patch_stencil_reference(*(t.double() for t in (xp, KS, MS, sc)))
+            err = (got.double() - ref64).abs()
+            assert bool(torch.all(err <= 2.0**-8 * ref64.abs() + 1e-5 * ref64.abs().max()))
+            plain = ps.patch_stencil_reference(xp, KS, MS, sc).double()
+            assert float((got.double() - plain).abs().max()) <= 2e-2 * float(plain.abs().max())
+
+
 @pytest.mark.parametrize("mg_type,number", [
     ("HMG-global", "float"), ("HMG-global", "double"), ("HPMG", "double"), ("HMG-local", "double"),
 ])

@@ -35,6 +35,31 @@ def test_small_scaling_r3_equals_the_tpu_record(tmp_path):
     assert text[-1].endswith("4 equal, 0 differs, 0 ambiguous, 0 none")
 
 
+def test_degree_filter_and_repetitions(tmp_path, capsys, monkeypatch):
+    """``--degree 4`` (chip_smoke.py phase y cuts the partitioning sweep so)
+    runs only the p=4 configs: at r=3 the two p=4 rows, with the record's
+    counts; the p=1 configs land on a SKIPPED line.  ``--repetitions 1``
+    reaches every config that runs."""
+    seen = []
+    run_config = rx.run_config
+
+    def spy(params, table, device):
+        seen.append(params.mg_data.n_repetitions)
+        return run_config(params, table, device)
+
+    monkeypatch.setattr(rx, "run_config", spy)
+    out = tmp_path / "ss.txt"
+    rc = rx.main(["small-scaling", "quadrant", "--max-ref", "3", "--degree", "4", "--repetitions",
+                  "1", "--device", "cpu", "--against", RECORD, "--out", str(out)])
+    assert rc == 0 and seen == [1, 1]
+    rows = rx.parse_tables(out.read_text())
+    assert [(r["degree"], int(r["n_iterations"])) for r in rows] == [("4", 4), ("4", 4)]
+    text = out.read_text().splitlines()
+    assert any(ln.startswith("# SKIPPED (--degree 4): input_0000.json, input_0001.json")
+               for ln in text)
+    assert "2 ran, 0 failed, 64 skipped by --max-ref, 2 by --degree" in capsys.readouterr().out
+
+
 def test_sharded_configs_run_with_record_counts(tmp_path, capsys):
     """``large_scaling quadrant 2`` (NShards 2, once NotImplementedError)
     runs its four r=4 rows over two gloo ranks each, with the r=4 counts of

@@ -222,21 +222,30 @@ def test_rebuilder_matches_jax():
     assert torch.allclose(y2[:, free], 2.0 * y1[:, free], rtol=1e-12, atol=0)
 
 
-def nsinker_spread() -> None:
+def nsinker_spread(rows=((3, 64), (4, 0)), jax_intervals: bool = False) -> None:
     """FGMRES(30) counts of the record's n-sinker system (galerkin/wbfbt,
     4 sinkers, seed 0, contrast 1e6, float64, to 1e-8; results/
     stokes-nsinker-tpu.txt:11) in the JAX package (its host-restart GMRES,
     as scripts/profile_stokes_tpu.py solves) and in the port, both on the
-    CPU: at r=3 from the record's right-hand side and from 64 changes of it
-    at the level of roundoff (``chip_smoke.stokes_rhs``, which phase u runs
-    on the card), and at r=4 from the record's right-hand side.
+    CPU: for each (r, k) of ``rows``, at refinement r from the record's
+    right-hand side and from k changes of it at the level of roundoff
+    (``chip_smoke.stokes_rhs``, which phase u runs on the card); by default
+    r=3 with 64 changes and r=4 alone.
 
         PYTHONPATH=. python tests/test_torch_nsinker.py
+
+    ``... tests/test_torch_nsinker.py r5 [K]`` runs r=5 alone (859,812 DoFs,
+    the row chip_smoke.py phase u solves on the card: 106 iterations there)
+    with K changes of b (default none; about 7 minutes per solve and
+    package on 8 cores); ``r5-intervals`` adds, from the record's b, the
+    port's solve with the JAX package's velocity Chebyshev intervals
+    copied in (the packages' eigenvalue estimates start from different
+    vectors: the JAX package draws its own with jax.random).
     """
     import chip_smoke
     from dealii_multigrid_tpu.solvers.gmres import gmres_solve_host
 
-    for r, n_perturbations in ((3, 64), (4, 0)):
+    for r, n_perturbations in rows:
         jop, jblock, _ = JN.build_stokes_nsinker(
             JG.create("hypercube", 3, r, 0), mg_data(JMG),
             JN.nsinker_viscosity(n_sinkers=4, eta_max=1e6, seed=0), dtype=jnp.float64,
@@ -247,16 +256,24 @@ def nsinker_spread() -> None:
             coarsening="galerkin", schur="wbfbt", device="cpu")
         jtri, ttri = JS.triangular_preconditioner(jop, jblock), TS.triangular_preconditioner(top, tblock)
         counts = {"jax": [], "port": []}
+        if jax_intervals:
+            itri = TS.triangular_preconditioner(top, with_jax_intervals(tblock, jblock))
+            counts["port, JAX intervals"] = []
         for k in range(n_perturbations + 1):
             b = chip_smoke.stokes_rhs(top, draw=1, perturbation=k)
             jres = gmres_solve_host(jop, jnp.asarray(b.numpy()), preconditioner=jtri, m=30,
                                     reltol=1e-8, maxiter=300)
             tres = TGM.gmres_solve(top.vmult, b, ttri.vmult, m=30, maxiter=300, reltol=1e-8)
-            for name, res, true in (
+            solved = [
                 ("jax", jres, JGM.verify_true_residual(jop, jnp.asarray(b.numpy()), jres.x,
                                                        jres.residual_norm, 1e-8)),
                 ("port", tres, TGM.verify_true_residual(top, b, tres.x, tres.residual_norm, 1e-8)),
-            ):
+            ]
+            if jax_intervals:
+                ires = TGM.gmres_solve(top.vmult, b, itri.vmult, m=30, maxiter=300, reltol=1e-8)
+                solved.append(("port, JAX intervals", ires, TGM.verify_true_residual(
+                    top, b, ires.x, ires.residual_norm, 1e-8)))
+            for name, res, true in solved:
                 counts[name].append(int(res.n_iterations))
                 print(f"r={r} {'record b' if k == 0 else f'perturbation {k}'} {name}: "
                       f"{int(res.n_iterations)} iterations, converged {bool(res.converged)}, true "
@@ -267,4 +284,11 @@ def nsinker_spread() -> None:
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    nsinker_spread()
+    import sys
+
+    if sys.argv[1:2] == ["r5"]:
+        nsinker_spread(((5, int(sys.argv[2]) if len(sys.argv) > 2 else 0),))
+    elif sys.argv[1:2] == ["r5-intervals"]:
+        nsinker_spread(((5, 0),), jax_intervals=True)
+    else:
+        nsinker_spread()

@@ -156,3 +156,35 @@ def test_kernel_source_names_the_tpu_kernel_it_replaces():
         src = f.read()
     assert "dealii_multigrid_tpu/ops/pallas_stencil.py" in src
     assert "sm_90a" in " ".join(ps.NVCC_FLAGS)
+
+
+def test_library_tag_changes_with_the_source_and_the_flags(tmp_path):
+    """The built library's path carries the SHA-1 of the source and the
+    nvcc flags: an unchanged source loads the library built before, a
+    changed source or flag builds anew (so the card never runs a stale
+    kernel)."""
+    same = tmp_path / "same.cu"
+    same.write_bytes(open(ps.SOURCE, "rb").read())
+    changed = tmp_path / "changed.cu"
+    changed.write_bytes(open(ps.SOURCE, "rb").read() + b"// changed\n")
+    here = ps.library.target()
+    assert ps.source_tag() in here and here.startswith(ps.BUILD_DIR)
+    assert ps._Library(str(same)).target() == here
+    assert ps._Library(str(changed)).target() != here
+    assert ps._Library(str(same), ps.NVCC_FLAGS + ("-lineinfo",)).target() != here
+
+
+def test_compare_stencil_reads_each_checkouts_flags_and_needs_a_card(monkeypatch, capsys):
+    """tools/compare_stencil.py builds another checkout's kernel with that
+    checkout's own NVCC_FLAGS, and without a card it exits 2 before it
+    builds anything."""
+    import os
+
+    from dealii_multigrid_tpu_torch.tools import compare_stencil
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(ps.SOURCE)))
+    assert compare_stencil.checkout_flags(os.path.dirname(root)) == ps.NVCC_FLAGS
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("sys.argv", ["compare_stencil", os.path.dirname(root)])
+    assert compare_stencil.main() == 2
+    assert "no CUDA card" in capsys.readouterr().err
