@@ -83,7 +83,7 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
         mixed, HMG-local double over float levels, and PMG mixed (AMG on
         the fine mesh at p=1); 5 repetitions each: converged, the guard,
         one iteration count in all six solves; set-up, peak memory,
-        MDoF/s;
+        MDoF/s; the draws' seconds and card-CPU equality as in u;
      s. Stokes on the hypercube: r=2 card against CPU (block-diagonal
         MINRES, triangular FGMRES(30)); r=3 FGMRES(30) to 1e-8 in 34
         iterations (results/stokes-nsinker-tpu.txt:8) with the true
@@ -100,8 +100,12 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
         43 on the TPU, 39-41 in the JAX package on the CPU under 1e-15
         changes of b), true relative residual <= 1e-8, and at 1e6 the counts
         of 8 such changes, each converged to 1e-8; r=5 (859,812 DoFs) at
-        1e6, a warm-up and one timed solve, one count in both, with the host
-        set-up split;
+        1e6, a warm-up and one timed solve, one count in both and that count
+        108, the JAX package's on the CPU, with the host set-up split; in
+        every row the seconds of the eigenvalue start-vector draws inside
+        the set-up (``utils.threefry.normal``), beside those of NumPy's
+        ``default_rng(42)`` for the same entries, and the largest draw made
+        on the card bit-equal to the same draw made on the CPU;
      v. the convection demo: r=2, 3 steps card against CPU (equal counts, T
         to 1e-10); r=4 (112,724 DoFs) 5 steps at constant viscosity and 3
         under eta = 10 exp(-3 T): every step converged, T in [0, 1] to
@@ -747,7 +751,8 @@ def run_2d(prm, dev, card: str, name: str, n_it: int | None = None):
     before = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    (res, problem, levels), launches = counted(lambda: api.run(prm, dev))
+    with draw_clock() as draws:
+        (res, problem, levels), launches = counted(lambda: api.run(prm, dev))
     wall = time.perf_counter() - t0
     its = res.solve_iterations
     print(f"phase r: {name}: n_dofs {res.n_dofs}, levels {res.n_levels}, solve iterations {its}, "
@@ -757,6 +762,7 @@ def run_2d(prm, dev, card: str, name: str, n_it: int | None = None):
           f"setup {res.setup_time:.1f} s, run wall {wall:.1f} s, "
           f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (allocated before "
           f"{before:.2f} GiB), stencil launches {launches}; card {card}", flush=True)
+    report_draws("r", name, draws, card)
     check(res.converged, f"{name} did not converge")
     check(len(set(its)) == 1 and len(its) == prm.mg_data.n_repetitions + 1,
           f"{name}: the solves took different iteration counts {its}")
@@ -954,6 +960,60 @@ def check_phase_row(row: dict, name: str, card: str) -> None:
 #: record's b) and the port 39-41 on the CPU (tests/test_torch_nsinker.py,
 #: ``nsinker_spread``); phase u prints the card's counts under 8 of them
 NSINKER_R3_ITERATIONS = {1e4: (28, 28), 1e6: (39, 43)}
+#: r=5 at contrast 1e6 from the record's b: the JAX package's count on the
+#: CPU (``tests/test_torch_nsinker.py r5``: 108 from b and two changes of it)
+NSINKER_R5_ITERATIONS = 108
+
+
+@contextlib.contextmanager
+def draw_clock():
+    """Collect (seed, n, dtype, device, seconds) of every eigenvalue
+    start-vector draw (``utils.threefry.normal``, which the estimates call
+    through the module) made inside the block."""
+    from dealii_multigrid_tpu_torch.utils import threefry
+
+    real, draws = threefry.normal, []
+
+    def timed(seed, n, dtype=torch.float32, device="cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(seed, n, dtype, device)
+        torch.cuda.synchronize()
+        draws.append((seed, n, dtype, out.device, time.perf_counter() - t0))
+        return out
+
+    threefry.normal = timed
+    try:
+        yield draws
+    finally:
+        threefry.normal = real
+
+
+def report_draws(phase: str, name: str, draws: list, card: str) -> None:
+    """Print the draws' seconds beside NumPy's ``default_rng(42)`` for the
+    same entries (host draw and copy to the card: the port's draw before
+    ``utils.threefry``), and hold the largest draw on the card bit for bit
+    to the same draw on the CPU."""
+    from dealii_multigrid_tpu_torch.utils import threefry
+
+    check(bool(draws) and all(d[3].type == "cuda" for d in draws),
+          f"{name}: no eigenvalue start vector drawn on the card {draws}")
+    numpy_s = 0.0
+    for _, n, dtype, _, _ in draws:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.as_tensor(np.random.default_rng(42).standard_normal(n), dtype=dtype, device="cuda")
+        torch.cuda.synchronize()
+        numpy_s += time.perf_counter() - t0
+    seed, n, dtype, dev, _ = max(draws, key=lambda d: d[1])
+    on_card, on_cpu = threefry.normal(seed, n, dtype, dev), threefry.normal(seed, n, dtype, "cpu")
+    same = bool(torch.equal(on_card.cpu(), on_cpu)) and not bool(torch.isnan(on_cpu).any())
+    print(f"phase {phase}: {name}: {len(draws)} eigenvalue start-vector draws "
+          f"{[(n, DTYPE_TAG[dt], round(sec, 4)) for _, n, dt, _, sec in draws]} take "
+          f"{sum(d[4] for d in draws):.4f} s of the set-up (NumPy default_rng(42) for the same "
+          f"entries: {numpy_s:.4f} s); the largest ({n} entries, {DTYPE_TAG[dtype]}) on the card "
+          f"bit-equal to the CPU's: {same}; card {card}", flush=True)
+    check(same, f"{name}: the threefry draw on the card differs from the CPU's")
 
 
 def tensors_of(*objs) -> list:
@@ -997,11 +1057,12 @@ def nsinker_row(r: int, contrast: float, reps: int, dev, card: str, perturbation
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    op, block, aux = nsinker.build_stokes_nsinker(
-        generators.create("hypercube", 3, r, 0), stokes_mg(),
-        nsinker.nsinker_viscosity(n_sinkers=4, eta_max=contrast, seed=0),
-        coarsening="galerkin", schur="wbfbt", device=dev,
-    )
+    with draw_clock() as draws:
+        op, block, aux = nsinker.build_stokes_nsinker(
+            generators.create("hypercube", 3, r, 0), stokes_mg(),
+            nsinker.nsinker_viscosity(n_sinkers=4, eta_max=contrast, seed=0),
+            coarsening="galerkin", schur="wbfbt", device=dev,
+        )
     tri = stokes.triangular_preconditioner(op, block)
     b = stokes_rhs(op, draw=1)
     torch.cuda.synchronize()
@@ -1019,6 +1080,7 @@ def nsinker_row(r: int, contrast: float, reps: int, dev, card: str, perturbation
           f"(reps {[round(t, 6) for t in times]}), {n * its[-1] / best / 1e6:.3f} MDoF/s, "
           f"setup {setup:.1f} s (host split {split}), peak mem "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card}", flush=True)
+    report_draws("u", f"n-sinker r={r} contrast {contrast:g}", draws, card)
     check(g.converged and rel_true <= 1e-8 and len(set(its)) == 1,
           f"n-sinker r={r} contrast {contrast:g}: converged {g.converged}, true relative residual "
           f"{rel_true:.3e}, iterations {its}")
@@ -1076,7 +1138,9 @@ def phase_u(dev, card: str) -> None:
     for contrast, (lo, hi) in NSINKER_R3_ITERATIONS.items():
         its = nsinker_row(3, contrast, 1, dev, card, perturbations=8 if contrast == 1e6 else 0)
         check(lo <= its <= hi, f"n-sinker r=3 contrast {contrast:g}: {its} iterations, record {lo}-{hi}")
-    nsinker_row(5, 1e6, 1, dev, card)
+    its = nsinker_row(5, 1e6, 1, dev, card)
+    check(its == NSINKER_R5_ITERATIONS,
+          f"n-sinker r=5 contrast 1e6: {its} iterations, the JAX package's {NSINKER_R5_ITERATIONS}")
 
 
 def phase_v(dev, card: str) -> None:

@@ -136,15 +136,6 @@ def level_in(level: LevelContext, dtype: torch.dtype) -> LevelContext:
     )
 
 
-def _seeded_normal(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """The eigenvalue-estimation start vector of a gather-engine level: the
-    JAX package draws it from ``jax.random``, the port from NumPy (seed 42),
-    as on its hybrid levels."""
-    return torch.as_tensor(
-        np.random.default_rng(42).standard_normal(n), dtype=dtype, device=device
-    )
-
-
 def build_gc_preconditioner(
     levels: list[LevelContext], mg_data: MultigridParameters, coarse_solve=None
 ) -> Multigrid:
@@ -162,7 +153,7 @@ def build_gc_preconditioner(
     ranges = estimate_eigenvalue_ranges(
         [lv.op for lv in levels[1:]],
         [lv.inv_diag for lv in levels[1:]],
-        [_seeded_normal(lv.dofh.n_dofs, level_dtype, lv.op.device) for lv in levels[1:]],
+        None,
         n_iterations=mg_data.smoother.eig_cg_n_iterations,
     )
     smoothers: list = [None]

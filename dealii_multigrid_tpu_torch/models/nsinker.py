@@ -417,7 +417,7 @@ def _build_galerkin_velocity_mg(geo, eta_fine_cells: np.ndarray, mg_data, dtype:
     sm = mg_data.smoother
     ranges = estimate_eigenvalue_ranges(
         operators[1:], inv_diags[1:],
-        [api._seeded_normal(op.n_dofs, dtype, device) for op in operators[1:]],
+        None,
         n_iterations=sm.eig_cg_n_iterations,
     )
     smoothers = (None,) + tuple(

@@ -16,6 +16,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils import threefry
+
+# the JAX package draws every start vector from jax.random.PRNGKey(42)
+START_SEED = 42
+
 
 def _extremes_from_cg_coefficients(alphas, betas) -> tuple[float, float]:
     """(lam_max, lam_min) of the Lanczos tridiagonal built from CG
@@ -41,11 +46,14 @@ def _extremes_from_cg_coefficients(alphas, betas) -> tuple[float, float]:
 
 
 def estimate_eigenvalue_range(
-    op, inv_diag: torch.Tensor, b0: torch.Tensor, n_iterations: int = 20,
-    use_op_dot: bool = False,
+    op, inv_diag: torch.Tensor, b0: torch.Tensor | None = None,
+    n_iterations: int = 20, use_op_dot: bool = False,
 ) -> tuple[float, float]:
     """Largest/smallest eigenvalue estimate of D^{-1} A via CG-Lanczos on
-    the start vector ``b0``; one host transfer of the coefficients.
+    the start vector ``b0``; one host transfer of the coefficients.  With
+    ``b0`` None the start vector is the JAX package's:
+    ``jax.random.normal(PRNGKey(42), (n,), inv_diag.dtype)``
+    (``utils.threefry``).
 
     A step whose residual product r.z falls below the smallest normal
     number ends the tridiagonal: CG has converged exactly there.  The JAX
@@ -54,6 +62,8 @@ def estimate_eigenvalue_range(
     steps after them are rounding noise that can put lambda_max far above
     the spectrum (a 216-slot float32 level gave 37 instead of 1.21)."""
     dot = op.dot if use_op_dot else (lambda a, c: torch.sum(a * c))
+    if b0 is None:
+        b0 = threefry.normal(START_SEED, inv_diag.shape[0], inv_diag.dtype, inv_diag.device)
     r = b0.to(inv_diag.dtype)
     p = inv_diag * r
     rz = dot(r, p)
@@ -79,11 +89,25 @@ def estimate_eigenvalue_range(
 
 
 def estimate_eigenvalue_ranges(
-    ops, inv_diags, b0s, n_iterations: int = 20, use_op_dot: bool = False
+    ops, inv_diags, b0s=None, n_iterations: int = 20, use_op_dot: bool = False,
 ) -> list[tuple[float, float]]:
-    """Per-level estimates for a hierarchy; every level is estimated."""
+    """Per-level estimates for a hierarchy; every level is estimated.  A
+    None entry of ``b0s`` (or ``b0s`` None) takes the JAX package's start
+    vector, ``jax.random.normal(PRNGKey(42), (n,), dtype)``: one draw at
+    the largest n of each dtype, of which every level takes its first n
+    entries, as a draw of n entries is the prefix of any longer one."""
+    b0s = list(b0s) if b0s is not None else [None] * len(inv_diags)
+    longest: dict = {}
+    for d, b in zip(inv_diags, b0s):
+        if b is None:
+            key = (d.dtype, d.device)
+            longest[key] = max(longest.get(key, 0), d.shape[0])
+    draws = {k: threefry.normal(START_SEED, n, *k) for k, n in longest.items()}
     return [
-        estimate_eigenvalue_range(op, d, b, n_iterations, use_op_dot)
+        estimate_eigenvalue_range(
+            op, d, draws[(d.dtype, d.device)][: d.shape[0]] if b is None else b,
+            n_iterations, use_op_dot,
+        )
         for op, d, b in zip(ops, inv_diags, b0s)
     ]
 

@@ -217,12 +217,8 @@ def make_coarse_solver(
         return make_cg_coarse_solver(op, None, maxiter, abstol, reltol)
     if kind == "cg_with_chebyshev":
         sm = mg_data.smoother if mg_data else None
-        b0 = torch.as_tensor(
-            np.random.default_rng(42).standard_normal(op.n_dofs),
-            dtype=inv_diag.dtype, device=inv_diag.device,
-        )
         lam_max, _ = estimate_eigenvalue_range(
-            op, inv_diag, b0, sm.eig_cg_n_iterations if sm else 20
+            op, inv_diag, None, sm.eig_cg_n_iterations if sm else 20
         )
         smoother = ChebyshevSmoother.create(
             op, inv_diag,

@@ -464,15 +464,13 @@ def build_local_smoothing_mg(
     Order as in the JAX package's function: the levels with their copy
     maps, the octant transfers, the Chebyshev smoothers at 1.2 x the
     estimated lambda_max, the coarse solve on the coarsest level.  The
-    eigenvalue start vectors come from one NumPy generator (seed 42) in
-    level order, where the JAX package draws them from ``jax.random``;
-    the estimates differ slightly and the 1.2 safety factor absorbs that.
-    Masking the output's constrained rows (Dirichlet and hanging slaves of
-    the active mesh) is the caller's job (api.PreconditionLS)."""
+    eigenvalue start vectors are the JAX package's, ``jax.random.normal``
+    from seed 42 on every level (``utils.threefry``).  Masking the output's
+    constrained rows (Dirichlet and hanging slaves of the active mesh) is
+    the caller's job (api.PreconditionLS)."""
     active = active_dofh.mesh
     p, dim = active_dofh.degree, active.dim
     elem = element.laplace_element_matrix(dim, p)
-    rng = np.random.default_rng(42)
 
     def dev(a):
         return torch.as_tensor(a, dtype=dtype, device=device)
@@ -535,7 +533,7 @@ def build_local_smoothing_mg(
     ranges = estimate_eigenvalue_ranges(
         levels[1:],
         [lv.inv_diag for lv in levels[1:]],
-        [dev(rng.standard_normal(lv.n_dofs)) for lv in levels[1:]],
+        None,
         n_iterations=sm.eig_cg_n_iterations,
     )
     smoothers: list = [None]

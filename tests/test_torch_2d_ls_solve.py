@@ -1,7 +1,10 @@
 """The port's 2D local smoothing matches the JAX package (CPU).
 
-One gather-engine local-smoothing V-cycle equals the JAX package's to
-1e-10 relative once the JAX smoothers' Chebyshev intervals are copied in;
+The port's own Chebyshev intervals on the gather-engine local-smoothing
+levels equal the JAX package's (1e-9 relative in float64, 1e-7 in float32:
+both start their estimates from ``jax.random.normal(PRNGKey(42))``); one
+local-smoothing V-cycle equals the JAX package's to 1e-10 relative, with
+the port's own intervals and with the JAX smoothers' intervals copied in;
 r=4 p=2 HMG-local and HPMG-local solves take the JAX run's iteration
 count with x within the solve's tolerance; mixed (double outer CG over
 float levels) takes the double solve's count, in every 2D multigrid type.
@@ -26,23 +29,44 @@ from dealii_multigrid_tpu_torch.mesh.dof import distribute_dofs as tdofs
 from dealii_multigrid_tpu_torch.solvers import local_smoothing as TLS
 from dealii_multigrid_tpu_torch.utils.params import RunParameters as TParams
 
-from test_torch_2d_solve import copy_intervals, params, rel
+from test_torch_2d_solve import INTERVAL_BOUND, copy_intervals, interval_gaps, params, rel
 
 
-def test_ls_cycle_matches_jax():
+def ls_pair(dtype=torch.float64):
+    """(JAX, port) 2D local-smoothing hierarchies at quadrant r=4 p=2."""
+    jdt = {torch.float64: jnp.float64, torch.float32: jnp.float32}[dtype]
     jmg = JLS.build_local_smoothing_mg(
-        jdofs(JG.create("quadrant", 2, 4), 2), params(JParams, "HMG-local").mg_data,
-        dtype=jnp.float64,
+        jdofs(JG.create("quadrant", 2, 4), 2), params(JParams, "HMG-local").mg_data, dtype=jdt,
     )
     active = tdofs(TG.create("quadrant", 2, 4), 2)
     tmg = TLS.build_local_smoothing_mg(
-        active, params(TParams, "HMG-local").mg_data, torch.device("cpu"), torch.float64
+        active, params(TParams, "HMG-local").mg_data, torch.device("cpu"), dtype
     )
-    assert len(tmg.levels) == len(jmg.levels) == 5
-    tmg = dataclasses.replace(tmg, smoothers=copy_intervals(tmg.smoothers, jmg.smoothers))
+    return jmg, tmg, active
+
+
+def ls_cycle_gap(jmg, tmg, active) -> float:
     r = np.random.default_rng(9).standard_normal(active.n_dofs)
     jx = jax.jit(lambda m, v: m.vmult(v))(jmg, jnp.asarray(r))
-    assert rel(tmg.vmult(torch.as_tensor(r)), jx) <= 1e-10
+    return rel(tmg.vmult(torch.as_tensor(r)), jx)
+
+
+def test_ls_cycle_matches_jax():
+    jmg, tmg, active = ls_pair()
+    assert len(tmg.levels) == len(jmg.levels) == 5
+    tmg = dataclasses.replace(tmg, smoothers=copy_intervals(tmg.smoothers, jmg.smoothers))
+    assert ls_cycle_gap(jmg, tmg, active) <= 1e-10
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_ls_own_intervals_match_jax(dtype):
+    jmg, tmg, _ = ls_pair(dtype)
+    gaps = interval_gaps(tmg.smoothers, jmg.smoothers)
+    assert len(gaps) == 4 and max(gaps) <= INTERVAL_BOUND[dtype], gaps
+
+
+def test_ls_cycle_of_the_ports_own_hierarchy_matches_jax():
+    assert ls_cycle_gap(*ls_pair()) <= 1e-10
 
 
 @pytest.mark.parametrize("mg_type", ["HMG-local", "HPMG-local"])

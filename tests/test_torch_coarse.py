@@ -3,7 +3,9 @@ package (CPU, float64).
 
 ``LaplaceOperator.vmult`` and the assembled problem must agree to 1e-12; an
 HMG-global solve with each of the five coarse-solver types (and "direct")
-must take the JAX run's iteration count and agree in x to 1e-8 relative.
+must take the JAX run's iteration count and agree in x to 1e-8 relative;
+``cg_with_chebyshev``'s Chebyshev interval, estimated from
+``jax.random.normal(PRNGKey(42))`` in both packages, equals JAX's to 1e-9.
 """
 
 import jax.numpy as jnp
@@ -90,6 +92,24 @@ def test_hmg_global_with_each_coarse_type_matches_jax(coarse):
     assert rel(tres.x, jres.x) <= 1e-8
     kind = type(tres.mg.coarse_solve).__name__
     assert kind == ("CGCoarseSolver" if coarse.startswith("cg") else "DirectCoarseSolver")
+
+
+@pytest.mark.parametrize("dim, r", [(2, 3), (3, 2)])
+def test_cg_with_chebyshev_interval_matches_jax(dim, r):
+    from dealii_multigrid_tpu.solvers import coarse as jcoarse
+
+    from test_torch_2d_solve import INTERVAL_BOUND, interval_gaps
+
+    jl, tl = levels(dim, r, 2)
+    solvers = [
+        C.make_coarse_solver("cg_with_chebyshev", lv.op, lv.dofh, lv.hanging,
+                             inv_diag=lv.inv_diag, mg_data=params(P, "HMG-global", r, 2).mg_data,
+                             dtype=dt)
+        for C, lv, P, dt in ((jcoarse, jl, JParams, jnp.float64),
+                             (tcoarse, tl, TParams, torch.float64))
+    ]
+    gaps = interval_gaps([solvers[1].preconditioner], [solvers[0].preconditioner])
+    assert gaps[0] <= INTERVAL_BOUND[torch.float64], gaps
 
 
 def test_unknown_coarse_type_raises():

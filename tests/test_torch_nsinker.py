@@ -5,8 +5,10 @@ field is bit-equal; the prolongation, the Galerkin level matrices and the
 transfer tables are equal entry for entry; unit viscosity reproduces
 ``build_stokes``'s operator; one application of the block-triangular
 preconditioner agrees to 1e-10 for mean/mass and galerkin/wbfbt at r=2 once
-the JAX velocity smoothers' Chebyshev intervals are copied in (the start
-vectors of the eigenvalue estimates differ); FGMRES(30) at contrast 1e4
+the JAX velocity smoothers' Chebyshev intervals are copied in, and without
+the copy the port's own velocity intervals equal the JAX package's to 1e-9
+relative (both start the eigenvalue estimates from
+``jax.random.normal(PRNGKey(42))``); FGMRES(30) at contrast 1e4
 takes JAX's iteration count with x to 1e-6; the rebuilder's operator and
 preconditioner match JAX's for one viscosity field.
 """
@@ -31,7 +33,7 @@ from dealii_multigrid_tpu_torch.ops import operator as TO
 from dealii_multigrid_tpu_torch.solvers import gmres as TGM
 from dealii_multigrid_tpu_torch.utils.params import MultigridParameters as TMG
 
-from test_torch_2d_solve import copy_intervals, rel
+from test_torch_2d_solve import INTERVAL_BOUND, copy_intervals, interval_gaps, rel
 from test_torch_amg import same_ell
 
 CASES = {"mean/mass": ("mean", "mass", 1e2, 1), "galerkin/wbfbt": ("galerkin", "wbfbt", 1e4, 0)}
@@ -59,15 +61,21 @@ def saddle_rhs(op, seed: int) -> np.ndarray:
     return b
 
 
+def build_port(name):
+    """The port's op/block/aux at hypercube r=2, with its own intervals."""
+    coarsening, schur, contrast, seed = CASES[name]
+    tv = TN.nsinker_viscosity(n_sinkers=4, eta_max=contrast, seed=seed)
+    return TN.build_stokes_nsinker(TG.create("hypercube", 3, 2, 0), mg_data(TMG), tv,
+                                   coarsening=coarsening, schur=schur, device="cpu")
+
+
 def build_pair(name):
     """(name, JAX op/block/aux, port op/block/aux) at hypercube r=2."""
     coarsening, schur, contrast, seed = CASES[name]
     jv = JN.nsinker_viscosity(n_sinkers=4, eta_max=contrast, seed=seed)
-    tv = TN.nsinker_viscosity(n_sinkers=4, eta_max=contrast, seed=seed)
     j = JN.build_stokes_nsinker(JG.create("hypercube", 3, 2, 0), mg_data(JMG), jv, dtype=jnp.float64,
                                 coarsening=coarsening, schur=schur)
-    t = TN.build_stokes_nsinker(TG.create("hypercube", 3, 2, 0), mg_data(TMG), tv,
-                                coarsening=coarsening, schur=schur, device="cpu")
+    t = build_port(name)
     return name, j, (t[0], with_jax_intervals(t[1], j[1]), t[2])
 
 
@@ -133,7 +141,7 @@ def test_galerkin_levels_and_transfers_equal_jax(galerkin_pair):
     assert rel(tmg.coarse_solve.L, jmg.coarse_solve.L) <= 1e-14
     for ts, js in zip(tmg.smoothers[1:], jmg.smoothers[1:]):
         assert np.array_equal(ts.inv_diag.numpy(), np.asarray(js.inv_diag))
-        assert abs(ts.theta - js.theta) <= 0.1 * js.theta  # own start vectors
+        assert abs(ts.theta - js.theta) <= 0.1 * js.theta  # the copied intervals
     # every Galerkin table is on the caller's device
     assert all(op.M.vals.device.type == "cpu" for op in tmg.operators[:-1])
 
@@ -158,6 +166,13 @@ def test_operator_and_triangular_preconditioner_match_jax(pair):
     ttri, jtri = TS.triangular_preconditioner(top, tblock), JS.triangular_preconditioner(jop, jblock)
     b = saddle_rhs(top, 3)
     assert rel(ttri.vmult(torch.as_tensor(b)), jax.jit(lambda p, v: p.vmult(v))(jtri, jnp.asarray(b))) <= 1e-10
+
+
+def test_velocity_intervals_are_the_ports_own_and_match_jax(pair):
+    name, (_, jblock, _), _ = pair
+    own = build_port(name)[1]
+    gaps = interval_gaps(own.v_precond.mg.smoothers, jblock.v_precond.mg.smoothers)
+    assert len(gaps) >= 1 and max(gaps) <= INTERVAL_BOUND[torch.float64], (name, gaps)
 
 
 def test_fgmres_matches_jax(galerkin_pair):
@@ -235,12 +250,14 @@ def nsinker_spread(rows=((3, 64), (4, 0)), jax_intervals: bool = False) -> None:
         PYTHONPATH=. python tests/test_torch_nsinker.py
 
     ``... tests/test_torch_nsinker.py r5 [K]`` runs r=5 alone (859,812 DoFs,
-    the row chip_smoke.py phase u solves on the card: 106 iterations there)
-    with K changes of b (default none; about 7 minutes per solve and
-    package on 8 cores); ``r5-intervals`` adds, from the record's b, the
-    port's solve with the JAX package's velocity Chebyshev intervals
-    copied in (the packages' eigenvalue estimates start from different
-    vectors: the JAX package draws its own with jax.random).
+    the row chip_smoke.py phase u solves on the card) with K changes of b
+    (default none; about 7 minutes per solve and package on 8 cores): 108
+    iterations in both packages from the record's b and two changes of it;
+    ``r5-intervals`` adds, from the record's b, the port's solve with the
+    JAX package's velocity Chebyshev intervals copied in, which takes the
+    count of the port's own intervals (both packages start the eigenvalue
+    estimates from ``jax.random.normal(PRNGKey(42))``, the port through
+    ``utils.threefry``).
     """
     import chip_smoke
     from dealii_multigrid_tpu.solvers.gmres import gmres_solve_host

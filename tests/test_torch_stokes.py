@@ -5,8 +5,11 @@ entry; ``gmres_solve`` takes the JAX solve's steps on a small nonsymmetric
 system; the true-residual guard raises on a wrong solution; on the r=2
 hypercube, block-diagonal MINRES and block-triangular FGMRES(30) take the
 JAX package's iteration counts, and x agrees to 1e-8 once the JAX velocity
-smoothers' Chebyshev intervals are copied in.  ``build_stokes`` leaves
-TF32 off.
+smoothers' Chebyshev intervals are copied in.  Without the copy, the
+port's own velocity intervals equal the JAX package's to 1e-9 relative
+and its block preconditioner applies as JAX's to 1e-10 (both packages
+start the estimates from ``jax.random.normal(PRNGKey(42))``).
+``build_stokes`` leaves TF32 off.
 """
 
 import dataclasses
@@ -29,7 +32,7 @@ from dealii_multigrid_tpu_torch.solvers import gmres as TGM
 from dealii_multigrid_tpu_torch.solvers.coarse import assemble_sparse_matrix
 from dealii_multigrid_tpu_torch.utils.params import MultigridParameters as TMG
 
-from test_torch_2d_solve import copy_intervals, rel
+from test_torch_2d_solve import INTERVAL_BOUND, copy_intervals, interval_gaps, rel
 
 
 def mg_data(cls):
@@ -111,7 +114,8 @@ def stokes_pair():
     torch.backends.cuda.matmul.allow_tf32 = True
     top, tblock, aux = TS.build_stokes(mesh_t, mg_data(TMG), device="cpu")
     tf32_after_build = torch.backends.cuda.matmul.allow_tf32
-    # the JAX velocity smoothers' intervals (the start vectors differ)
+    # the JAX velocity smoothers' intervals, copied (the port's own equal them:
+    # test_stokes_velocity_intervals_are_the_ports_own_and_match_jax)
     vp = tblock.v_precond
     jsm = jblock.v_precond.mg.smoothers
     vp = dataclasses.replace(vp, mg=dataclasses.replace(vp.mg, smoothers=copy_intervals(vp.mg.smoothers, jsm)))
@@ -120,6 +124,15 @@ def stokes_pair():
     b[: 3 * top.n_v] *= top.keep_v.numpy()
     b[3 * top.n_v:] -= b[3 * top.n_v:].mean()
     return (jop, jblock), (top, tblock, aux), b, tf32_after_build
+
+
+def test_stokes_velocity_intervals_are_the_ports_own_and_match_jax(stokes_pair):
+    (_, jblock), (top, _, _), b, _ = stokes_pair
+    _, own, _ = TS.build_stokes(TG.create("hypercube", 3, 2, 0), mg_data(TMG), device="cpu")
+    gaps = interval_gaps(own.v_precond.mg.smoothers, jblock.v_precond.mg.smoothers)
+    assert len(gaps) >= 2 and max(gaps) <= INTERVAL_BOUND[torch.float64], gaps
+    jz = jax.jit(lambda p, v: p.vmult(v))(jblock, jnp.asarray(b))
+    assert rel(own.vmult(torch.as_tensor(b)), jz) <= 1e-10
 
 
 def test_build_stokes_turns_tf32_off(stokes_pair):
