@@ -1,0 +1,5 @@
+"""The level residuals (phase residuum) per CG iteration (ms)."""
+
+
+def read(run):
+    return run.phase_ms_per_it(("residuum",))

@@ -1,0 +1,5 @@
+"""Restriction and prolongation per CG iteration (ms)."""
+
+
+def read(run):
+    return run.phase_ms_per_it(("res", "pro"))
