@@ -1,0 +1,14 @@
+"""Kernel launches per CG iteration of the profiler window inside the level
+residuals' spans, every level (``mgtpu.operator.residuum@L<l>``)."""
+
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from harness.spans import is_phase, launches_per_it  # noqa: E402
+
+PHASES = ("residuum",)
+
+
+def read(run):
+    return launches_per_it(run, lambda s: is_phase(s, *PHASES))

@@ -60,7 +60,7 @@ from .solvers.local_smoothing import (
 from .solvers.multigrid import Multigrid, PreconditionMG
 from .utils.device import resolve_device
 from .utils.params import MultigridParameters, RunParameters
-from .utils.phases import PhaseRecorder, checked, instrument
+from .utils.phases import PhaseRecorder, checked, instrument, setup_span
 
 _DTYPES = {
     "float": torch.float32,
@@ -219,6 +219,7 @@ class HybridLevel:
         return self.op.gather(flat)[self.to_global_idx]
 
 
+@setup_span("mgtpu.setup.level")
 def build_level_hybrid(
     mesh: AdaptiveMesh, degree: int, device: torch.device, dtype: torch.dtype,
     K: int = 8, n_shards: int = 1, cell_shard: np.ndarray | None = None,
@@ -257,6 +258,7 @@ def build_level_hybrid(
     )
 
 
+@setup_span("mgtpu.setup.coarse")
 def _hybrid_coarse_solver(kind: str, level: HybridLevel, mg_data: MultigridParameters):
     """The coarse solve of a hybrid hierarchy by CoarseGridSolverType
     (reference: multigrid_throughput.cc:909-1077), on slot vectors."""
@@ -295,6 +297,7 @@ def _hybrid_coarse_solver(kind: str, level: HybridLevel, mg_data: MultigridParam
     return make_cg_coarse_solver(op, prec, cs.maxiter, cs.abstol, cs.reltol, use_op_dot=True)
 
 
+@setup_span("mgtpu.setup.gc_preconditioner")
 def build_gc_preconditioner_hybrid(
     levels: list[HybridLevel], mg_data: MultigridParameters, coarse_solve=None
 ) -> Multigrid:
@@ -357,9 +360,11 @@ class MGSolveResult:
     amg: object = None          # the algebraic solver of AMG and AMGPETSc
     rhs_used: torch.Tensor | None = None
     # ProfilePhases: seconds per iteration of each MG phase and of the whole
-    # iteration, both from the one instrumented solve after the timed ones
+    # iteration, both from the one instrumented solve after the timed ones,
+    # and of each phase at each level (utils.phases.PhaseRecorder.per_level)
     phases: dict | None = None
     phase_iteration_time: float | None = None
+    phases_per_level: dict | None = None
     # the domain decomposition (parallel/sharding.py): ranks, the cell->rank
     # map applied per level (None: replicated), ranks of the coarsest level
     n_shards: int = 1
@@ -384,11 +389,14 @@ def mg_solve(
     """Warm-up solve + best-of-n_repetitions timed CG, the reference's
     benchmark protocol (multigrid_throughput.cc:1140-1268).  With
     ``profile_phases`` one more solve runs with the preconditioner's phase
-    hooks timing every phase of its V-cycles (utils/phases.py); its
-    per-iteration phase and iteration times land in ``phases`` and
-    ``phase_iteration_time``, and the timed solves stay uninstrumented.  In
+    hooks timing every phase of its V-cycles at every level
+    (utils.phases.PhaseRecorder); its per-iteration phase and iteration
+    times land in ``phases`` and ``phase_iteration_time``, its per-V-cycle
+    times of each phase at each level in ``phases_per_level``, and the timed
+    solves stay uninstrumented (their phase hook is ``utils.phases.untimed``,
+    which names each phase and its level to a recording profiler).  In
     debug mode (``MGTPU_DEBUG``) every solve checks each phase's output for
-    non-finite values (``solvers.multigrid.finite_check``).
+    non-finite values (``utils.phases.finite_check``).
 
     ``fine_op`` is a HybridOperator, a MixedPrecisionOperator or (AMG,
     AMGPETSc) a gather-engine LaplaceOperator, whose dot is the plain one;
@@ -451,7 +459,7 @@ def mg_solve(
             f"||b|| {res.norm0:.3e}, allowance {threshold:.3e}): the operator, "
             "preconditioner or a kernel computed an inconsistent state"
         )
-    phases = phase_iteration_time = None
+    phases = phase_iteration_time = phases_per_level = None
     recorder = PhaseRecorder(device)
     hooked = instrument(preconditioner, recorder) if profile_phases else None
     if hooked is not None:  # AMG and AMGPETSc have no MG phases
@@ -460,6 +468,7 @@ def mg_solve(
         n_it = max(res_p.n_iterations, 1)
         phases = {k: v / n_it for k, v in recorder.seconds.items()}
         phase_iteration_time = seconds / n_it
+        phases_per_level = recorder.per_level(n_it)
     # a double-single x rounds to float32 at the API surface
     x = twofloat.tf_round(res.x) if df32 else res.x
     return MGSolveResult(
@@ -477,9 +486,11 @@ def mg_solve(
         solve_iterations=iterations,
         phases=phases,
         phase_iteration_time=phase_iteration_time,
+        phases_per_level=phases_per_level,
     )
 
 
+@setup_span("mgtpu.setup.outer_problem")
 def _outer_problem(params: RunParameters, fine: HybridLevel, device: torch.device):
     """The outer CG's operator and right-hand side on the fine level, and the
     assembled problem: (outer_op, rhs, problem).  ``rhs`` is a twofloat.TF

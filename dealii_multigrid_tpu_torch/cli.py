@@ -30,24 +30,13 @@ from .parallel import metrics
 from .parallel.partition import partition_hierarchy
 from .solvers.coarse import find_amg
 from .solvers.local_smoothing import level_mesh
-from .solvers.multigrid import PreconditionMG
 from .utils.device import describe_device, resolve_device
 from .utils.params import RunParameters
-from .utils.phases import format_per_level_table, profile_preconditioner_per_level
+from .utils.phases import format_per_level_table
 from .utils.table import ConvergenceTable
 from .utils.vtu import write_vtu
 
 _MG_TYPES = ("PMG", "HMG-global", "HPMG", "HMG-local", "HPMG-local")
-
-
-def _phase_precond(result, params: RunParameters):
-    """The preconditioner the phase profiler takes: the Multigrid (of a
-    global-coarsening solve, or HPMG-local's p-levels with the LS V-cycle as
-    their coarse solve) wrapped at the outer-precision boundary, else the
-    LS hierarchy of HMG-local, else None (AMG, AMGPETSc)."""
-    if result.mg is not None:
-        return PreconditionMG(result.mg, api.number_dtype(params.number_type))
-    return result.ls_mg
 
 
 def _print_amg_hierarchy(result) -> None:
@@ -124,16 +113,11 @@ def run_config(params: RunParameters, table: ConvergenceTable, device: torch.dev
             table.add_value(f"time_{ph}", phases[ph])
         table.add_value("time_to_mg", phases["to_mg"])
         table.add_value("time_to_global", phases["to_global"])
-        # (a launched sharded run's hierarchy stays with its ranks: no table)
-        if params.verbose and _phase_precond(result, params) is not None:
+        if params.verbose:
             # reference-shaped per-level phase matrix
-            # (multigrid_throughput.cc:1285-1379), each phase in loops of
-            # its own
-            per_level = profile_preconditioner_per_level(
-                _phase_precond(result, params), result.rhs_used
-            )
+            # (multigrid_throughput.cc:1285-1379), from the same solve
             print("\nMG phases per level (s, one V-cycle):")
-            print(format_per_level_table(per_level))
+            print(format_per_level_table(result.phases_per_level))
 
     if params.verbose:
         _print_amg_hierarchy(result)

@@ -9,8 +9,10 @@ by MinLevel / MinNCells (multigrid_throughput.cc:2227-2260).
 from __future__ import annotations
 
 from .octree import AdaptiveMesh
+from ..utils.phases import setup_span
 
 
+@setup_span("mgtpu.setup.coarsening")
 def geometric_coarsening_sequence(
     mesh: AdaptiveMesh,
     min_level: int = -1,

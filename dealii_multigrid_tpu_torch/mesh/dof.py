@@ -24,6 +24,7 @@ import scipy.sparse as sp
 
 from ..ops import tensor
 from .octree import AdaptiveMesh, morton_encode
+from ..utils.phases import setup_span
 
 
 def local_node_indices(dim: int, degree: int) -> np.ndarray:
@@ -68,6 +69,7 @@ def _pack_rows(cols: list[np.ndarray], bits: list[int]):
     return stacked.view([("", np.int64)] * stacked.shape[1]).reshape(-1)
 
 
+@setup_span("mgtpu.setup.dofs")
 def distribute_dofs(mesh: AdaptiveMesh, degree: int) -> DoFHandler:
     """Enumerate global DoFs of the continuous Q_degree space on ``mesh``."""
     dim, p = mesh.dim, degree
@@ -181,6 +183,7 @@ def _active_lookup(mesh: AdaptiveMesh):
     return find
 
 
+@setup_span("mgtpu.setup.hanging")
 def make_hanging_node_constraints(dofh: DoFHandler) -> Constraints:
     """Build and transitively close the hanging-node constraint rows."""
     mesh, p, dim = dofh.mesh, dofh.degree, dofh.dim

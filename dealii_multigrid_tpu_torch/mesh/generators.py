@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from .octree import AdaptiveMesh
+from ..utils.phases import setup_span
 
 
 def create_hypercube(dim: int, n_refinements: int) -> AdaptiveMesh:
@@ -89,6 +90,7 @@ _GENERATORS = {
 }
 
 
+@setup_span("mgtpu.setup.mesh")
 def create(geometry_type: str, dim: int, n_ref_global: int, n_ref_local: int = 0) -> AdaptiveMesh:
     """Dispatch by GeometryType config key (reference: multigrid_throughput.cc:2048-2062)."""
     try:

@@ -20,6 +20,7 @@ import torch
 from ..mesh.dof import Constraints, DoFHandler
 from ..ops import element
 from ..ops.operator import LaplaceOperator, distribute, split_boundary_constraints
+from ..utils.phases import setup_span
 
 _WIDTH = 0.1
 _CENTER = -0.5
@@ -144,6 +145,7 @@ def make_problem(
     raise ValueError(f"unknown SimulationType {simulation_type!r}")
 
 
+@setup_span("mgtpu.setup.rhs")
 def assemble_problem_hybrid(
     dofh: DoFHandler,
     hanging: Constraints,

@@ -31,8 +31,16 @@ import numpy as np
 import torch
 
 from ..utils.device import to_tensor
+from ..utils.phases import PREFIX, setup_span, spanned
 from .fixed_order import FixedOrderSum
 from .patch_stencil import matrix_band, patch_stencil
+
+# the parts of an operator application, as profiler ranges (utils/phases.py)
+APPLY_C = PREFIX + "operator.apply_c"
+CELL_APPLY = PREFIX + "operator.cell_apply"
+APPLY_CT_FACES = PREFIX + "operator.apply_ct_faces"
+EXCHANGE = PREFIX + "operator.exchange"
+APPLY_CT = PREFIX + "operator.apply_ct"
 
 
 def tables_to_device(tree, device: torch.device, dtype: torch.dtype):
@@ -368,10 +376,10 @@ class HybridOperator:
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     def vmult(self, x: torch.Tensor) -> torch.Tensor:
-        r = self.cell_apply_raw(self.apply_c(x))
-        r = self.apply_ct_faces(r)
-        r = self.exchange(r)
-        r = self.apply_ct(r)
+        r = spanned(CELL_APPLY, self.cell_apply_raw, spanned(APPLY_C, self.apply_c, x))
+        r = spanned(APPLY_CT_FACES, self.apply_ct_faces, r)
+        r = spanned(EXCHANGE, self.exchange, r)
+        r = spanned(APPLY_CT, self.apply_ct, r)
         # identity on constrained DoFs (reference operator.h:152-183)
         return r * self.constrained_keep + x * (1.0 - self.constrained_keep)
 
@@ -386,6 +394,7 @@ def _last_writers(idx: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor]:
     )
 
 
+@setup_span("mgtpu.setup.hybrid_operator")
 def make_hybrid_operator(fmt, hanging, device, dtype) -> HybridOperator:
     """Host tables (hybrid_format.hybrid_operator_tables) -> device operator;
     on a device-major level (``fmt.n_shards`` > 1) this rank's part of it

@@ -21,6 +21,7 @@ from ..mesh.dof import Constraints, DoFHandler, local_node_indices
 from ..mesh.octree import AdaptiveMesh, morton_encode
 from . import element, tensor
 from .operator import split_boundary_constraints
+from ..utils.phases import setup_span
 
 
 def _assembled_1d(mat: np.ndarray, K: int, degree: int) -> np.ndarray:
@@ -386,6 +387,7 @@ def _simulate_full(raw_p, raw_s, nbr, nbr_s, cross, S, n1, K, use_ssweep):
     return up, us
 
 
+@setup_span("mgtpu.setup.hybrid_format")
 def build_hybrid_format(
     dofh: DoFHandler, K: int = 8, min_patches: int = 2
 ) -> HybridFormat:
@@ -714,7 +716,7 @@ def sanitizer_enabled() -> bool:
     is built (``verify_format``) and checks the output of every V-cycle
     phase, and of every preconditioner without such phases (AMG, AMGPETSc,
     the Stokes Schur solves), for non-finite values
-    (``solvers.multigrid.finite_check``)."""
+    (``utils.phases.finite_check``)."""
     return os.environ.get("MGTPU_DEBUG", "") not in ("", "0")
 
 

@@ -39,6 +39,7 @@ from . import tensor
 from .fixed_order import FixedOrderSum
 from .hybrid import HybridOperator, tables_to_device
 from .hybrid_format import HybridFormat, cell_slot_table
+from ..utils.phases import setup_span
 
 
 def _axis_apply(u: torch.Tensor, mat: torch.Tensor, axis: int) -> torch.Tensor:
@@ -593,6 +594,7 @@ def _restrict_sum(t: dict, meta: dict, patch_slots_c: int, device) -> FixedOrder
     return FixedOrderSum.build(np.concatenate(targets), meta["n_slots_c"], device)
 
 
+@setup_span("mgtpu.setup.transfer")
 def make_hybrid_transfer(fine_fmt, coarse_fmt, fine_op: HybridOperator,
                          coarse_op: HybridOperator, ls_mode: bool = False) -> HybridTransfer:
     """Host tables -> device transfer on the operators' device and dtype; a

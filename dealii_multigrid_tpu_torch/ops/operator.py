@@ -21,6 +21,7 @@ import torch
 
 from ..mesh.dof import Constraints, DoFHandler
 from . import element
+from ..utils.phases import setup_span
 from .fixed_order import FixedOrderSum
 
 
@@ -184,6 +185,7 @@ def make_operator(
     )
 
 
+@setup_span("mgtpu.setup.diagonal")
 def compute_diagonal(
     dofh: DoFHandler,
     hanging: Constraints,

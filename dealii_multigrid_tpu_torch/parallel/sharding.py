@@ -458,7 +458,7 @@ def _coarse_probe(result, levels, device) -> bool:
         levels[0].fmt.n_shards == 1), "the coarsest level is sharded"
     seen = {}
 
-    def hook(phase, fn, *args):
+    def hook(phase, level, fn, *args):
         out = fn(*args)
         if phase == "cs":
             seen["in"], seen["out"] = args[0].clone(), out.clone()

@@ -3,7 +3,9 @@
 Mirrors SolverCG + ReductionControl (reference: multigrid_throughput.cc:
 1143-1145, 1238-1254): stop when ||r|| <= max(abstol, reltol * ||r0||) and
 report the iteration count.  A Python loop over torch tensors; the only
-host synchronisation per iteration is the convergence test.
+host synchronisation per iteration is the convergence test.  While a
+profiler records, the solve and each iteration are the ranges
+``mgtpu.cg.solve`` and ``mgtpu.cg.iteration`` (utils/phases.py).
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+
+from ..utils.phases import CG_ITERATION, CG_SOLVE, span
 
 
 class CGResult(NamedTuple):
@@ -43,29 +47,31 @@ def cg_solve(
         preconditioner = lambda r: r
     if dot is None:
         dot = lambda u, v: torch.sum(u * v)
-    x = torch.zeros_like(b)
-    r = b.clone()
-    p = torch.zeros_like(b)
-    rz = dot(r, r)
-    norm0 = float(torch.sqrt(rz))
-    if force_iterations is not None:
-        tol, maxiter = 0.0, force_iterations
-    else:
-        tol = max(abstol, reltol * norm0)
-    res = norm0
-    it = 0
-    while res > tol and it < maxiter:
-        z = preconditioner(r)
-        rz_new = dot(r, z)
-        if it > 0:
-            p = z + (rz_new / rz) * p
+    with span(CG_SOLVE):
+        x = torch.zeros_like(b)
+        r = b.clone()
+        p = torch.zeros_like(b)
+        rz = dot(r, r)
+        norm0 = float(torch.sqrt(rz))
+        if force_iterations is not None:
+            tol, maxiter = 0.0, force_iterations
         else:
-            p = z
-        ap = a_vmult(p)
-        alpha = rz_new / dot(p, ap)
-        x = x + alpha * p
-        r = r - alpha * ap
-        rz = rz_new
-        it += 1
-        res = float(torch.sqrt(dot(r, r)))
+            tol = max(abstol, reltol * norm0)
+        res = norm0
+        it = 0
+        while res > tol and it < maxiter:
+            with span(CG_ITERATION):
+                z = preconditioner(r)
+                rz_new = dot(r, z)
+                if it > 0:
+                    p = z + (rz_new / rz) * p
+                else:
+                    p = z
+                ap = a_vmult(p)
+                alpha = rz_new / dot(p, ap)
+                x = x + alpha * p
+                r = r - alpha * ap
+                rz = rz_new
+                it += 1
+                res = float(torch.sqrt(dot(r, r)))
     return CGResult(x, it, res, res <= tol, norm0)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..utils import threefry
+from ..utils.phases import setup_span
 
 # the JAX package draws every start vector from jax.random.PRNGKey(42)
 START_SEED = 42
@@ -88,6 +89,7 @@ def estimate_eigenvalue_range(
     return _extremes_from_cg_coefficients(coeffs[0, :k], coeffs[1, :k])
 
 
+@setup_span("mgtpu.setup.eigenvalues")
 def estimate_eigenvalue_ranges(
     ops, inv_diags, b0s=None, n_iterations: int = 20, use_op_dot: bool = False,
 ) -> list[tuple[float, float]]:

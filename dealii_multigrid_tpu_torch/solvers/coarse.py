@@ -28,6 +28,7 @@ from ..ops.operator import split_boundary_constraints
 from .amg import AMGPreconditioner, build_amg, build_amg_boomer, factor_dtype
 from .cg import cg_solve
 from .chebyshev import ChebyshevSmoother, estimate_eigenvalue_range
+from ..utils.phases import setup_span
 
 # problems up to this size use the exact dense Cholesky; larger ones get the
 # smoothed-aggregation AMG (solvers/amg.py)
@@ -168,6 +169,7 @@ def make_direct_coarse_solver(
     return DirectCoarseSolver(L, to_idx, from_idx)
 
 
+@setup_span("mgtpu.setup.coarse")
 def make_algebraic_solver(
     dofh: DoFHandler,
     hanging: Constraints,

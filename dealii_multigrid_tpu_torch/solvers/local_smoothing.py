@@ -40,7 +40,7 @@ from ..mesh.dof import Constraints, DoFHandler, distribute_dofs, local_node_indi
 from ..mesh.octree import AdaptiveMesh, morton_encode
 from ..ops import element, tensor
 from ..ops.fixed_order import FixedOrderSum
-from ..ops.hybrid import HybridOperator, make_hybrid_operator
+from ..ops.hybrid import CELL_APPLY, EXCHANGE, HybridOperator, make_hybrid_operator
 from ..ops.hybrid_format import (
     HybridFormat,
     build_hybrid_format,
@@ -52,13 +52,15 @@ from ..ops.hybrid_format import (
 from ..ops.hybrid_transfer import make_hybrid_transfer
 from .chebyshev import ChebyshevSmoother, estimate_eigenvalue_ranges
 from .coarse import make_algebraic_solver
-from .multigrid import prolong_add, residual, untimed
+from ..utils.phases import PRECONDITION, setup_span, span, spanned, untimed
+from .multigrid import prolong_add, residual
 
 # ---------------------------------------------------------------------------
 # host half
 # ---------------------------------------------------------------------------
 
 
+@setup_span("mgtpu.setup.level_mesh")
 def level_mesh(active: AdaptiveMesh, l: int) -> AdaptiveMesh:
     """Cells at tree level exactly l: active cells at l plus level-l ancestors
     of finer active cells."""
@@ -153,6 +155,7 @@ class LSLevelHost:
     from_src: np.ndarray
 
 
+@setup_span("mgtpu.setup.ls_level")
 def ls_level_host(
     active_dofh: DoFHandler, active_fmt: HybridFormat, lm: AdaptiveMesh, l: int,
     K: int = 8, n_shards: int = 1,
@@ -230,7 +233,8 @@ class LSHybridLevel:
         return self.op.dot(x, y)
 
     def _raw_exchanged(self, u: torch.Tensor) -> torch.Tensor:
-        return self.op.exchange(self.op.cell_apply_raw(u))
+        r = spanned(CELL_APPLY, self.op.cell_apply_raw, u)
+        return spanned(EXCHANGE, self.op.exchange, r)
 
     def interface_down(self, u: torch.Tensor) -> torch.Tensor:
         """Edge rows of the raw operator applied to an interior-supported
@@ -265,11 +269,12 @@ class _LSCycle:
     copies between the active mesh's vector and the levels'."""
 
     def vmult(self, r_active: torch.Tensor) -> torch.Tensor:
-        ph = self.hook
-        defect = ph("to_mg", self.copy_to_mg, r_active)
-        sols = [None] * len(self.levels)
-        self._v_step(len(self.levels) - 1, defect[-1], defect, sols)
-        return ph("to_global", self.copy_from_mg, sols, r_active)
+        ph, top = self.hook, len(self.levels) - 1
+        with span(PRECONDITION):
+            defect = ph("to_mg", top, self.copy_to_mg, r_active)
+            sols = [None] * len(self.levels)
+            self._v_step(top, defect[-1], defect, sols)
+            return ph("to_global", top, self.copy_from_mg, sols, r_active)
 
     def _v_step(self, l: int, d_l: torch.Tensor, defect: list, sols: list) -> torch.Tensor:
         """Level l's visit; fills sols[l].  A method, not a nested closure:
@@ -278,17 +283,17 @@ class _LSCycle:
         ph = self.hook
         lev = self.levels[l]
         if l == 0:
-            sols[0] = ph("cs", self.coarse_solve, d_l)
+            sols[0] = ph("cs", 0, self.coarse_solve, d_l)
             return sols[0]
         sm, tr = self.smoothers[l], self.transfers[l]
         d_smooth = d_l * lev.keep
-        u = ph("pre", sm.vmult, d_smooth)
-        t = ph("residuum", residual, lev, d_smooth, u)
-        t = ph("edge_pro", _edge_down, lev, t, d_l, u)
-        d_c = ph("res", _restrict_add, tr, defect[l - 1], t)
-        u = ph("pro", prolong_add, tr, u, self._v_step(l - 1, d_c, defect, sols))
-        b_eff = ph("edge_pro", _edge_up, lev, d_smooth, u)
-        sols[l] = ph("post", sm.step, u, b_eff)
+        u = ph("pre", l, sm.vmult, d_smooth)
+        t = ph("residuum", l, residual, lev, d_smooth, u)
+        t = ph("edge_pro", l, _edge_down, lev, t, d_l, u)
+        d_c = ph("res", l, _restrict_add, tr, defect[l - 1], t)
+        u = ph("pro", l, prolong_add, tr, u, self._v_step(l - 1, d_c, defect, sols))
+        b_eff = ph("edge_pro", l, _edge_up, lev, d_smooth, u)
+        sols[l] = ph("post", l, sm.step, u, b_eff)
         return sols[l]
 
 
@@ -555,6 +560,7 @@ def build_local_smoothing_mg(
     )
 
 
+@setup_span("mgtpu.setup.ls_preconditioner")
 def build_local_smoothing_mg_hybrid(
     active_dofh: DoFHandler,
     active_fmt: HybridFormat,

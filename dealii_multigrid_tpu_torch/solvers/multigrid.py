@@ -5,12 +5,16 @@ drives them (multigrid_throughput.cc:1093-1133): per-level Chebyshev pre-
 and post-smoothing, residual restriction, coarse solve, prolongation, and
 the precision boundary between the outer Krylov solve and the MG levels.
 
-Every phase runs through the object's ``hook`` (``hook(phase, fn, *args)``
-returns ``fn(*args)``), the analog of the reference's Multigrid signals
-(multigrid_throughput.cc:1152-1234).  The default hook only calls; the
+Every phase runs through the object's ``hook`` (``hook(phase, level, fn,
+*args)`` returns ``fn(*args)``; level 0 is the coarsest), the analog of the
+reference's Multigrid signals (multigrid_throughput.cc:1152-1234).  The
+default hook, ``untimed`` (utils/phases.py), only calls, inside a profiler
+range named after the phase and its level while a profiler records; the
 profiled solve of ``ProfilePhases`` runs a copy whose hook times each phase
-(utils/phases.py), and debug mode (``MGTPU_DEBUG``) a copy whose hook is
-``finite_check``, so the timed solves carry no event, no check and no branch.
+at each level (``utils.phases.PhaseRecorder``), and debug mode
+(``MGTPU_DEBUG``) a copy whose hook is ``finite_check``, so the timed solves
+carry no event, no check and no branch.  A whole application of
+``PreconditionMG`` is the range ``mgtpu.vcycle.precondition``.
 """
 
 from __future__ import annotations
@@ -20,24 +24,8 @@ from typing import Callable
 
 import torch
 
-
-def untimed(phase: str, fn: Callable, *args):
-    """The default phase hook: apply the phase, time nothing."""
-    return fn(*args)
-
-
-def finite_check(phase: str, fn: Callable, *args):
-    """The debug-mode phase hook: apply the phase (a V-cycle phase, or a
-    whole preconditioner without such phases), then raise FloatingPointError
-    naming it if its output holds a NaN or an infinity (torch has no
-    ``jax_debug_nans``).  One host synchronisation per phase."""
-    out = fn(*args)
-    parts = out if isinstance(out, (list, tuple)) else (out,)
-    if not all(bool(torch.isfinite(t).all()) for t in parts):
-        raise FloatingPointError(
-            f"debug mode (MGTPU_DEBUG): non-finite value in the output of the phase {phase!r}"
-        )
-    return out
+# finite_check, debug mode's hook, is named here beside the default one
+from ..utils.phases import PRECONDITION, finite_check, span, untimed  # noqa: F401
 
 
 def residual(op, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -65,15 +53,15 @@ class Multigrid:
     def _v_cycle(self, level: int, b: torch.Tensor) -> torch.Tensor:
         ph = self.hook
         if level == 0:
-            return ph("cs", self.coarse_solve, b)
+            return ph("cs", 0, self.coarse_solve, b)
         sm = self.smoothers[level]
         tr = self.transfers[level]
-        x = ph("pre", sm.vmult, b)                                 # zero initial guess
-        r = ph("residuum", residual, self.operators[level], b, x)
-        bc = ph("res", tr.restrict, r)
+        x = ph("pre", level, sm.vmult, b)                          # zero initial guess
+        r = ph("residuum", level, residual, self.operators[level], b, x)
+        bc = ph("res", level, tr.restrict, r)
         xc = self._v_cycle(level - 1, bc)                          # coarse correction
-        x = ph("pro", prolong_add, tr, x, xc)
-        return ph("post", sm.step, x, b)
+        x = ph("pro", level, prolong_add, tr, x, xc)
+        return ph("post", level, sm.step, x, b)
 
     def vmult(self, b: torch.Tensor) -> torch.Tensor:
         """Apply as a preconditioner: one V-cycle from a zero guess."""
@@ -92,7 +80,8 @@ class PreconditionMG:
     hook: Callable = untimed
 
     def vmult(self, b: torch.Tensor) -> torch.Tensor:
-        ph = self.hook
-        b_level = ph("to_mg", b.to, self.mg.operators[-1].dtype)
-        x = self.mg.vmult(b_level)
-        return ph("to_global", x.to, self.outer_dtype)
+        ph, top = self.hook, self.mg.n_levels - 1
+        with span(PRECONDITION):
+            b_level = ph("to_mg", top, b.to, self.mg.operators[-1].dtype)
+            x = self.mg.vmult(b_level)
+            return ph("to_global", top, x.to, self.outer_dtype)

@@ -29,6 +29,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..utils.phases import CG_ITERATION, CG_SOLVE, span
 from .cg import CGResult
 
 # Dekker splitting constant for f32: 2^12 + 1 (splits a 24-bit mantissa into
@@ -209,29 +210,32 @@ def cg_solve_df32(
     ``a_vmult`` and ``preconditioner`` are plain f32 maps (the hybrid
     operator and the f32 V-cycle); x, r, p carry (hi, lo) pairs.  Returns a
     CGResult whose x is the TF pair (callers round or widen it).  On a
-    sharded level ``allsum`` adds every dot's partials over the ranks."""
+    sharded level ``allsum`` adds every dot's partials over the ranks.  The
+    profiler ranges are cg_solve's."""
     if preconditioner is None:
         preconditioner = lambda r: r
-    x = tf_zeros_like(b.hi)
-    r = TF(b.hi, b.lo)
-    p = x
-    rz = tf_dot(r, r, weight, allsum)
-    norm0 = float(torch.sqrt(rz))
-    if force_iterations is not None:
-        tol, maxiter = 0.0, force_iterations
-    else:
-        tol = max(abstol, reltol * norm0)
-    res = norm0
-    it = 0
-    while res > tol and it < maxiter:
-        z = preconditioner(tf_round(r))
-        rz_new = tf_dot_f32(r, z, weight, allsum)
-        p = tf_xpby(z, rz_new / rz, p) if it > 0 else tf_from_f32(z)
-        ap = a_vmult(tf_round(p))
-        alpha = rz_new / tf_dot_f32(p, ap, weight, allsum)
-        x = tf_axpy(alpha, p, x)
-        r = tf_axpy_f32(-alpha, ap, r)
-        rz = rz_new
-        it += 1
-        res = float(tf_norm(r, weight, allsum))
+    with span(CG_SOLVE):
+        x = tf_zeros_like(b.hi)
+        r = TF(b.hi, b.lo)
+        p = x
+        rz = tf_dot(r, r, weight, allsum)
+        norm0 = float(torch.sqrt(rz))
+        if force_iterations is not None:
+            tol, maxiter = 0.0, force_iterations
+        else:
+            tol = max(abstol, reltol * norm0)
+        res = norm0
+        it = 0
+        while res > tol and it < maxiter:
+            with span(CG_ITERATION):
+                z = preconditioner(tf_round(r))
+                rz_new = tf_dot_f32(r, z, weight, allsum)
+                p = tf_xpby(z, rz_new / rz, p) if it > 0 else tf_from_f32(z)
+                ap = a_vmult(tf_round(p))
+                alpha = rz_new / tf_dot_f32(p, ap, weight, allsum)
+                x = tf_axpy(alpha, p, x)
+                r = tf_axpy_f32(-alpha, ap, r)
+                rz = rz_new
+                it += 1
+                res = float(tf_norm(r, weight, allsum))
     return CGResult(x, it, res, res <= tol, norm0)

@@ -1,4 +1,5 @@
-"""Per-phase multigrid timing (the reference's 7 MG signal hooks).
+"""Per-phase multigrid timing and the port's spans (the reference's 7 MG
+signal hooks).
 
 The reference instruments pre-smooth / residuum / restrict / coarse /
 prolong / edge-prolong / post-smooth per level per repetition through
@@ -7,60 +8,123 @@ them as ``time_pre .. time_post`` plus the two preconditioner-boundary
 timers ``time_to_mg`` / ``time_to_global`` (:1381-1401); ``time_cg`` is the
 iteration time minus their sum (:1270-1283).
 
-Two measurements live here:
+Every V-cycle phase runs through its object's ``hook``, called as
+``hook(phase, level, fn, *args)`` (solvers/multigrid.py,
+solvers/local_smoothing.py; level 0 is the coarsest).  Three hooks live
+here:
 
-  * ``PhaseRecorder`` and ``instrument``: the in-solve timers.  Every
-    V-cycle phase runs through its object's ``hook`` (solvers/multigrid.py,
-    solvers/local_smoothing.py); ``instrument`` gives a copy of a
-    preconditioner whose hooks record each phase of the real V-cycles, and
-    ``api.mg_solve`` runs one such solve after the timed ones.  On the card
-    two CUDA events bracket each phase and the solve on one stream, so the
-    phases are disjoint parts of the solve and their sum cannot exceed it;
-    on the CPU ``perf_counter`` does the same.
-  * ``profile_preconditioner_per_level``: each phase at each level applied
-    in loops of its own (after one warm-up, the best of three measurements
-    of ``n_loop`` applications); the CLI's verbose per-level table.
-    ``profile_preconditioner`` sums it over the levels.
+  * ``untimed``, the default: applies the phase, inside a profiler range
+    named after the phase and its level while a profiler records;
+  * ``PhaseRecorder``: times every phase of the real V-cycles, per phase
+    and per (phase, level).  On the card two CUDA events bracket each phase
+    and the solve on one stream, so the phases are disjoint parts of the
+    solve and their sum cannot exceed it; on the CPU ``perf_counter`` does
+    the same.  ``instrument`` gives a copy of a preconditioner whose hooks
+    are a recorder, ``api.mg_solve`` runs one such solve after the timed
+    ones, and its per-level sums are the CLI's verbose per-level table;
+  * ``finite_check``, debug mode's (``MGTPU_DEBUG``): ``checked`` returns a
+    copy of a preconditioner whose phases run through it, or, for one
+    without V-cycle phases, a ``FiniteChecked`` wrapper that checks its
+    whole output.
 
-``checked`` uses the same hook mechanism for debug mode: with
-``MGTPU_DEBUG`` set it returns a copy of a preconditioner whose phases run
-through ``solvers.multigrid.finite_check``, or, for one without V-cycle
-phases, a ``FiniteChecked`` wrapper that checks its whole output.
+Spans.  Names start with ``mgtpu.``, then the layer, then the part, and end
+in ``@L<level>`` where there is one: ``mgtpu.smoother.pre@L7``,
+``mgtpu.operator.exchange``, ``mgtpu.cg.iteration``.  The solve path's
+spans (``untimed``, ``spanned``, ``span``) exist only while a
+``torch.profiler`` records (``torch.autograd.profiler._is_profiler_enabled``);
+otherwise each costs that one attribute read.  They are
+``_RecordFunctionFast`` ranges: a CPU operator event on the profiler's
+clock, nested as the calls nest, that is never mirrored onto the device
+timeline (``record_function`` is, as a ``gpu_user_annotation``, which a
+trace reader would count as device activity).  The set-up's spans
+(``setup_span``) are always on: host clock, each ended by a device
+synchronize on CUDA, kept per (path of names) in ``SETUP``, and passed to a
+recording profiler as the same ranges.
 
-Both handle the global-coarsening Multigrid and both local-smoothing
-hierarchies; for the latter ``edge_pro`` times the refinement-edge
-interface operators (include/operator.h:191-226) and to_mg / to_global the
-copy_to_mg / copy_from_mg maps.  The loop inputs are random vectors from
-fixed NumPy seeds, drawn in the global layout: a hybrid level spreads them
-to its slots with ``fmt.from_global`` (slots that hold one DoF must carry
-one value, or the constraint scatter is not defined); a gather-engine
-vector is in the global layout already.
+This module imports nothing else of the package when it is imported, so
+that ``mesh/``, ``ops/`` and ``solvers/`` can import it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
+from contextlib import nullcontext
+from typing import Callable, NamedTuple
 
-import numpy as np
 import torch
-
-from ..ops.hybrid import HybridOperator
-from ..ops.hybrid_format import sanitizer_enabled
-from ..solvers.multigrid import PreconditionMG, finite_check
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
 
 PHASES = ("pre", "residuum", "res", "cs", "pro", "edge_pro", "post")
 KEYS = PHASES + ("to_mg", "to_global")
+PREFIX = "mgtpu."
+#: the layer in a phase's span name (BENCHMARK.json's per-layer metrics);
+#: to_mg / to_global are the V-cycle's boundary with the outer solve
+PHASE_LAYER = {
+    "pre": "smoother", "post": "smoother", "residuum": "operator",
+    "res": "transfer", "pro": "transfer", "cs": "coarse", "edge_pro": "ls_interface",
+    "to_mg": "vcycle", "to_global": "vcycle",
+}
+#: a whole preconditioner application (PreconditionMG, the LS V-cycle)
+PRECONDITION = PREFIX + "vcycle.precondition"
+CG_SOLVE = PREFIX + "cg.solve"
+CG_ITERATION = PREFIX + "cg.iteration"
+_NULL = nullcontext()
+
+
+def phase_span_name(phase: str, level: int | None) -> str:
+    layer = PHASE_LAYER.get(phase, "vcycle")
+    return f"{PREFIX}{layer}.{phase}" + ("" if level is None else f"@L{level}")
+
+
+def spanned(name: str, fn: Callable, *args):
+    """``fn(*args)``, inside the range ``name`` while a profiler records."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return fn(*args)
+    with _RecordFunctionFast(name):
+        return fn(*args)
+
+
+def span(name: str):
+    """A context: the range ``name`` while a profiler records, else nothing."""
+    return _RecordFunctionFast(name) if _autograd_profiler._is_profiler_enabled else _NULL
+
+
+def untimed(phase: str, level: int | None, fn: Callable, *args):
+    """The default phase hook: apply the phase, time nothing (a range
+    named after the phase and its level while a profiler records)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return fn(*args)
+    with _RecordFunctionFast(phase_span_name(phase, level)):
+        return fn(*args)
+
+
+def finite_check(phase: str, level: int | None, fn: Callable, *args):
+    """The debug-mode phase hook: apply the phase (a V-cycle phase, or a
+    whole preconditioner without such phases), then raise FloatingPointError
+    naming it if its output holds a NaN or an infinity (torch has no
+    ``jax_debug_nans``).  One host synchronisation per phase."""
+    out = untimed(phase, level, fn, *args)
+    parts = out if isinstance(out, (list, tuple)) else (out,)
+    if not all(bool(torch.isfinite(t).all()) for t in parts):
+        raise FloatingPointError(
+            f"debug mode (MGTPU_DEBUG): non-finite value in the output of the phase {phase!r}"
+        )
+    return out
 
 
 class PhaseRecorder:
     """A phase hook that times every call: CUDA events on the card,
     ``perf_counter`` on the CPU.  ``span`` times a whole solve the same
-    way, so the phases' sum is at most the span."""
+    way, so the phases' sum is at most the span.  ``seconds`` holds the
+    sums per phase, ``level_seconds`` per (phase, level)."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
         self.seconds = dict.fromkeys(KEYS, 0.0)
+        self.level_seconds: dict = {}
         self._events: list = []
 
     def _mark(self):
@@ -73,10 +137,10 @@ class PhaseRecorder:
     def _elapsed(self, start, stop) -> float:
         return start.elapsed_time(stop) * 1e-3 if self.cuda else stop - start
 
-    def __call__(self, phase: str, fn, *args):
+    def __call__(self, phase: str, level: int, fn, *args):
         start = self._mark()
-        out = fn(*args)
-        self._events.append((phase, start, self._mark()))
+        out = untimed(phase, level, fn, *args)
+        self._events.append((phase, level, start, self._mark()))
         return out
 
     def span(self, fn):
@@ -86,15 +150,32 @@ class PhaseRecorder:
         stop = self._mark()
         if self.cuda:
             stop.synchronize()
-        for phase, a, b in self._events:
-            self.seconds[phase] += self._elapsed(a, b)
+        for phase, level, a, b in self._events:
+            s = self._elapsed(a, b)
+            self.seconds[phase] += s
+            self.level_seconds[phase, level] = self.level_seconds.get((phase, level), 0.0) + s
         self._events.clear()
         return out, self._elapsed(start, stop)
+
+    def per_level(self, n: int = 1) -> dict:
+        """The per-level sums over ``n`` (V-cycles), as
+        ``format_per_level_table`` takes them: ``out[phase][l - 1]`` for the
+        levels l = 1..L of each phase in ``PHASES``, and ``out["cs"]`` the
+        coarse solve's one entry."""
+        top = max((lv for _, lv in self.level_seconds), default=0)
+        out = {
+            ph: [self.level_seconds.get((ph, lv), 0.0) / n for lv in range(1, top + 1)]
+            for ph in PHASES if ph != "cs"
+        }
+        out["cs"] = [self.level_seconds.get(("cs", 0), 0.0) / n]
+        return out
 
 
 def instrument(precond, hook):
     """A copy of ``precond`` whose V-cycle phases run through ``hook``, or
     None for a preconditioner without multigrid phases (AMG, AMGPETSc)."""
+    from ..solvers.multigrid import PreconditionMG
+
     if isinstance(precond, PreconditionMG):
         return dataclasses.replace(
             precond, mg=dataclasses.replace(precond.mg, hook=hook), hook=hook
@@ -123,147 +204,18 @@ class FiniteChecked:
             raise FloatingPointError(
                 f"debug mode (MGTPU_DEBUG): non-finite value in the input of the phase {self.phase!r}"
             )
-        return finite_check(self.phase, self.inner.vmult, b)
+        return finite_check(self.phase, None, self.inner.vmult, b)
 
 
 def checked(precond, phase: str = "amg"):
     """``precond`` itself, or in debug mode (``MGTPU_DEBUG``) a copy whose
-    V-cycle phases run through ``solvers.multigrid.finite_check``; a
-    preconditioner without such phases is checked as a whole, under the
-    name ``phase``."""
+    V-cycle phases run through ``finite_check``; a preconditioner without
+    such phases is checked as a whole, under the name ``phase``."""
+    from ..ops.hybrid_format import sanitizer_enabled
+
     if not sanitizer_enabled():
         return precond
     return instrument(precond, finite_check) or FiniteChecked(precond, phase)
-
-
-# ---------------------------------------------------------------------------
-# phases timed in loops of their own
-# ---------------------------------------------------------------------------
-
-
-def _loop_time(fn, device: torch.device, n_loop: int = 8, reps: int = 3) -> float:
-    """Seconds per application of ``fn()``: after one warm-up, the best of
-    ``reps`` measurements of ``n_loop`` applications each, between two CUDA
-    events (card) or clock readings (CPU)."""
-    def loop():
-        for _ in range(n_loop):
-            fn()
-
-    fn()
-    rec = PhaseRecorder(device)
-    best = float("inf")
-    for _ in range(reps):
-        if rec.cuda:
-            torch.cuda.synchronize(device)
-        best = min(best, rec.span(loop)[1] / n_loop)
-    return best
-
-
-def _consistent_random(op, dtype: torch.dtype, seed: int) -> torch.Tensor:
-    """A random vector of ``op``'s layout: for a hybrid operator a slot
-    vector whose duplicate slots agree, else a global-layout vector."""
-    g = np.random.default_rng(seed).standard_normal(op.n_dofs)
-    if isinstance(op, HybridOperator):
-        if op.fmt is None:
-            raise ValueError("phase profiling needs operators built by make_hybrid_operator")
-        g = op.fmt.from_global(g)
-    return torch.as_tensor(g, dtype=dtype, device=op.device)
-
-
-def _gc_vectors(mg, dtype):
-    n = mg.n_levels
-    d = [_consistent_random(mg.operators[l], dtype, 100 + l) for l in range(n)]
-    x = [_consistent_random(mg.operators[l], dtype, 200 + l) for l in range(n)]
-    return d, x
-
-
-def _ls_vectors(lsmg, dtype):
-    ops = [getattr(lv, "op", lv) for lv in lsmg.levels]
-    d = [_consistent_random(op, dtype, 300 + i) for i, op in enumerate(ops)]
-    x = [_consistent_random(op, dtype, 400 + i) for i, op in enumerate(ops)]
-    return d, x
-
-
-def _gc_phase_fns(mg, d, x, l: int) -> dict:
-    """The five per-level phases of level ``l`` >= 1 as thunks."""
-    sm, op, tr = mg.smoothers[l], mg.operators[l], mg.transfers[l]
-    return {
-        "pre": lambda: sm.vmult(d[l]),
-        "residuum": lambda: d[l] - op.vmult(x[l]),
-        "res": lambda: tr.restrict(d[l]),
-        "pro": lambda: tr.prolong(d[l - 1]),
-        "post": lambda: sm.step(x[l], d[l]),
-    }
-
-
-def _ls_phase_fns(lsmg, d, x, l: int) -> dict:
-    sm, lev, tr = lsmg.smoothers[l], lsmg.levels[l], lsmg.transfers[l]
-    return {
-        "pre": lambda: sm.vmult(d[l]),
-        "residuum": lambda: d[l] - lev.vmult(x[l]),
-        "edge_pro": lambda: lev.interface_down(x[l]) + lev.interface_up(x[l]),
-        "res": lambda: tr.restrict(d[l]),
-        "pro": lambda: tr.prolong(d[l - 1]),
-        "post": lambda: sm.step(x[l], d[l]),
-    }
-
-
-def _per_level(level_fns: list, device, n_loop: int) -> dict:
-    out = {ph: [] for ph in PHASES}
-    for fns in level_fns:
-        for ph in PHASES:
-            if ph == "cs":
-                continue
-            out[ph].append(_loop_time(fns[ph], device, n_loop) if ph in fns else 0.0)
-    return out
-
-
-def profile_v_cycle_per_level(mg, b: torch.Tensor, n_loop: int = 8) -> dict:
-    """Per-level per-phase seconds for a global-coarsening Multigrid:
-    ``out[phase][l-1]`` = seconds of that phase at level l (levels 1..L; the
-    coarse solve is its own 'cs' single-entry list).  The reference prints
-    per-level min/max/avg matrices over MPI ranks
-    (multigrid_throughput.cc:1285-1379, mg_tools.h tables); on one device
-    there is one value per cell."""
-    d, x = _gc_vectors(mg, b.dtype)
-    fns = [_gc_phase_fns(mg, d, x, l) for l in range(1, mg.n_levels)]
-    out = _per_level(fns, b.device, n_loop)
-    out["cs"] = [_loop_time(lambda: mg.coarse_solve(d[0]), b.device, n_loop)]
-    return out
-
-
-def profile_ls_cycle_per_level(lsmg, b: torch.Tensor, n_loop: int = 8) -> dict:
-    """Per-level per-phase seconds for a local-smoothing hierarchy (see
-    profile_v_cycle_per_level), including the refinement-edge interface
-    work per level."""
-    d, x = _ls_vectors(lsmg, b.dtype)
-    fns = [_ls_phase_fns(lsmg, d, x, l) for l in range(1, len(lsmg.levels))]
-    out = _per_level(fns, b.device, n_loop)
-    out["cs"] = [_loop_time(lambda: lsmg.coarse_solve(d[0]), b.device, n_loop)]
-    return out
-
-
-def _sum_levels(per_level: dict) -> dict:
-    return {ph: float(sum(per_level[ph])) for ph in PHASES}
-
-
-def profile_v_cycle(mg, b: torch.Tensor, n_loop: int = 8) -> dict:
-    """Per-phase seconds (one V-cycle: the per-level times summed over
-    levels) for a global-coarsening Multigrid (solvers/multigrid.py);
-    ``edge_pro`` is 0."""
-    return _sum_levels(profile_v_cycle_per_level(mg, b, n_loop))
-
-
-def profile_ls_cycle(lsmg, b: torch.Tensor, n_loop: int = 8) -> dict:
-    """Per-phase seconds for a local-smoothing hierarchy of either engine
-    (the per-level times summed), including the refinement-edge interface
-    work (edge_pro) and the copy_to_mg / copy_from_mg boundaries (to_mg /
-    to_global); ``b`` is a vector of the active mesh's layout."""
-    out = _sum_levels(profile_ls_cycle_per_level(lsmg, b, n_loop))
-    _, x = _ls_vectors(lsmg, b.dtype)
-    out["to_mg"] = _loop_time(lambda: lsmg.copy_to_mg(b), b.device, n_loop)
-    out["to_global"] = _loop_time(lambda: lsmg.copy_from_mg(x, b), b.device, n_loop)
-    return out
 
 
 def format_per_level_table(per_level: dict) -> str:
@@ -285,33 +237,73 @@ def format_per_level_table(per_level: dict) -> str:
     return "\n".join(lines)
 
 
-def _ls_of(precond):
-    """(local-smoothing hierarchy, its level dtype) of a PreconditionLS
-    wrapper (api.py) or a bare hierarchy."""
-    lsmg = getattr(precond, "lsmg", precond)
-    return lsmg, lsmg.levels[-1].keep.dtype
+# ---------------------------------------------------------------------------
+# set-up spans
+# ---------------------------------------------------------------------------
 
 
-def profile_preconditioner(precond, b: torch.Tensor, n_loop: int = 8) -> dict:
-    """Dispatch on preconditioner type; always returns the 7 PHASES plus
-    to_mg / to_global."""
-    if isinstance(precond, PreconditionMG):
-        level_dtype = precond.mg.operators[-1].dtype
-        b_level = b.to(level_dtype)
-        out = profile_v_cycle(precond.mg, b_level, n_loop)
-        # precision-boundary casts (reference connect_transfer_to_mg/global)
-        out["to_mg"] = _loop_time(lambda: b.to(level_dtype), b.device, n_loop)
-        out["to_global"] = _loop_time(lambda: b_level.to(b.dtype), b.device, n_loop)
-        return out
-    lsmg, level_dtype = _ls_of(precond)
-    return profile_ls_cycle(lsmg, b.to(level_dtype), n_loop)
+class SetupRecord(NamedTuple):
+    name: str
+    parent: tuple           # names of the enclosing set-up spans, outermost first
+    seconds: float
+    count: int
 
 
-def profile_preconditioner_per_level(precond, b: torch.Tensor, n_loop: int = 8) -> dict:
-    """Per-level dispatch (see profile_preconditioner)."""
-    if isinstance(precond, PreconditionMG):
-        return profile_v_cycle_per_level(
-            precond.mg, b.to(precond.mg.operators[-1].dtype), n_loop
-        )
-    lsmg, level_dtype = _ls_of(precond)
-    return profile_ls_cycle_per_level(lsmg, b.to(level_dtype), n_loop)
+class SetupSpans:
+    """The set-up's spans, kept in memory: seconds and count per path of
+    names (the span and the set-up spans around it)."""
+
+    def __init__(self):
+        self._totals: dict = {}     # path -> [seconds, count]
+        self._path: tuple = ()
+
+    def span(self, name: str) -> "_SetupSpan":
+        return _SetupSpan(self, name)
+
+    def records(self) -> list:
+        return [SetupRecord(p[-1], p[:-1], s, n) for p, (s, n) in self._totals.items()]
+
+    def clear(self) -> None:
+        self._totals.clear()
+
+
+class _SetupSpan:
+    def __init__(self, owner: SetupSpans, name: str):
+        self.owner, self.name = owner, name
+
+    def __enter__(self):
+        self.range = span(self.name)
+        self.range.__enter__()
+        owner = self.owner
+        self.outer, self.path = owner._path, owner._path + (self.name,)
+        owner._path = self.path
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            if torch.cuda.is_initialized():
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - self.t0
+        finally:
+            self.range.__exit__(*exc)
+            self.owner._path = self.outer
+        total = self.owner._totals.setdefault(self.path, [0.0, 0])
+        total[0] += seconds
+        total[1] += 1
+        return False
+
+
+#: the process's set-up spans (the benchmark's metric readers take them)
+SETUP = SetupSpans()
+
+
+def setup_span(name: str):
+    """Decorator: every call of the function is the set-up span ``name``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with SETUP.span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap

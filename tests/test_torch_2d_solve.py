@@ -10,7 +10,8 @@ JAX package's to 1e-10 relative, with the port's own intervals and with
 the JAX smoothers' intervals copied in.  Whole r=4 p=2
 solves of HMG-global, PMG and HPMG take the JAX run's iteration count, and
 x agrees to the solve's tolerance; df32 raises as in the JAX package; the
-phase profilers, in loops and inside a solve, return all nine phases.
+instrumented solve returns all nine phases, and its per-level sums add up
+to them.
 """
 
 import dataclasses
@@ -28,9 +29,8 @@ from dealii_multigrid_tpu.utils.params import RunParameters as JParams
 from dealii_multigrid_tpu_torch import api as tapi
 from dealii_multigrid_tpu_torch.mesh import generators as TG
 from dealii_multigrid_tpu_torch.mesh.coarsening import geometric_coarsening_sequence as tcoarsen
-from dealii_multigrid_tpu_torch.solvers.multigrid import PreconditionMG
 from dealii_multigrid_tpu_torch.utils.params import RunParameters as TParams
-from dealii_multigrid_tpu_torch.utils.phases import KEYS, profile_preconditioner
+from dealii_multigrid_tpu_torch.utils.phases import KEYS, PHASES
 
 CPU = torch.device("cpu")
 # relative gap of the Chebyshev centre and half-width, port against JAX
@@ -142,12 +142,16 @@ def test_2d_phase_profilers_return_nine_keys(mg_type):
     prm = params(TParams, mg_type, r=3)
     prm.profile_phases = True
     res, _, _ = tapi.run(prm, "cpu")
-    precond = res.ls_mg if res.mg is None else PreconditionMG(res.mg, torch.float64)
-    looped = profile_preconditioner(precond, res.rhs_used, n_loop=2)
-    for phases in (looped, res.phases):
-        assert set(phases) == set(KEYS) and len(phases) == 9
-        for ph in ("pre", "residuum", "res", "cs", "pro", "post", "to_mg", "to_global"):
-            assert phases[ph] > 0.0, ph
-        assert (phases["edge_pro"] > 0.0) == (mg_type == "HMG-local")
+    phases = res.phases
+    assert set(phases) == set(KEYS) and len(phases) == 9
+    for ph in ("pre", "residuum", "res", "cs", "pro", "post", "to_mg", "to_global"):
+        assert phases[ph] > 0.0, ph
+    assert (phases["edge_pro"] > 0.0) == (mg_type == "HMG-local")
+    # the per-level sums of the same solve, every level above the coarsest
+    n_levels = len((res.mg or res.ls_mg).smoothers)
+    for ph in PHASES:
+        per = res.phases_per_level[ph]
+        assert len(per) == (1 if ph == "cs" else n_levels - 1)
+        assert sum(per) == pytest.approx(phases[ph], rel=1e-12, abs=1e-15)
     # the in-solve phases are parts of the instrumented iteration
     assert sum(res.phases.values()) <= res.phase_iteration_time

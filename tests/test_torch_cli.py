@@ -2,11 +2,11 @@
 
 The CLI on ``--device cpu`` must print the JAX CLI's columns in the JAX
 CLI's order, with equal n_cells, n_cells_hn, n_dofs, n_levels and
-n_iterations, and return 1 on a bad config.  The phase profilers return the
-seven MG phases and the two boundary timers; ``edge_pro`` is zero on a
-global-coarsening hierarchy and measured on a local-smoothing one (as
-tests/test_phases.py holds the JAX package).  Partition metrics, policies
-and the table format equal the JAX package's on the same meshes.
+n_iterations, and return 1 on a bad config.  The instrumented solve of
+ProfilePhases times the seven MG phases and the two boundary timers inside
+its iterations (tests/test_torch_spans.py holds its per-level sums and the
+verbose table).  Partition metrics, policies and the table format equal the
+JAX package's on the same meshes.
 """
 
 import io
@@ -24,15 +24,10 @@ from dealii_multigrid_tpu.utils.table import ConvergenceTable as JTable
 from dealii_multigrid_tpu_torch import api as tapi, cli as tcli
 from dealii_multigrid_tpu_torch.mesh import dof as TD, generators as TG
 from dealii_multigrid_tpu_torch.parallel import metrics as tmetrics, partition as tpartition
-from dealii_multigrid_tpu_torch.solvers.multigrid import PreconditionMG, untimed
-from dealii_multigrid_tpu_torch.utils import timer, vtu
+from dealii_multigrid_tpu_torch.solvers.multigrid import untimed
+from dealii_multigrid_tpu_torch.utils import vtu
 from dealii_multigrid_tpu_torch.utils.params import RunParameters as TParams
-from dealii_multigrid_tpu_torch.utils.phases import (
-    PHASES,
-    format_per_level_table,
-    profile_preconditioner,
-    profile_preconditioner_per_level,
-)
+from dealii_multigrid_tpu_torch.utils.phases import PHASES
 from dealii_multigrid_tpu_torch.utils.table import ConvergenceTable as TTable
 
 BASE = {
@@ -166,36 +161,6 @@ def small_params(mg_type):
     return p
 
 
-def test_profile_gc_phases():
-    res, _, _ = tapi.run(small_params("HMG-global"), "cpu")
-    precond = PreconditionMG(res.mg, torch.float64)
-    phases = profile_preconditioner(precond, res.rhs_used, n_loop=2)
-    assert set(phases) == set(PHASES) | {"to_mg", "to_global"} and len(phases) == 9
-    for ph in ("pre", "residuum", "post", "res", "pro", "cs", "to_mg", "to_global"):
-        assert phases[ph] > 0.0
-    assert phases["edge_pro"] == 0.0                 # GC has no edge operators
-    per_level = profile_preconditioner_per_level(precond, res.rhs_used, n_loop=2)
-    L = res.mg.n_levels - 1
-    for ph in ("pre", "residuum", "res", "pro", "post", "edge_pro"):
-        assert len(per_level[ph]) == L
-    assert len(per_level["cs"]) == 1 and per_level["edge_pro"] == [0.0] * L
-    lines = format_per_level_table(per_level).splitlines()
-    assert lines[0].split() == ["level", "pre", "residuum", "res", "pro", "edge_pro", "post"]
-    assert len(lines) == L + 2 and lines[-1].startswith("coarse solve:")
-
-
-@pytest.mark.parametrize("mg_type", ["HMG-local", "HPMG-local"])
-def test_profile_ls_phases(mg_type):
-    res, _, _ = tapi.run(small_params(mg_type), "cpu")
-    phases = profile_preconditioner(res.ls_mg, res.rhs_used, n_loop=2)
-    assert set(phases) == set(PHASES) | {"to_mg", "to_global"}
-    assert phases["edge_pro"] > 0.0                  # refinement-edge operators
-    assert phases["to_mg"] > 0.0 and phases["to_global"] > 0.0
-    per_level = profile_preconditioner_per_level(res.ls_mg, res.rhs_used, n_loop=2)
-    assert len(per_level["edge_pro"]) == len(res.ls_mg.levels) - 1
-    assert all(t > 0.0 for t in per_level["edge_pro"])
-
-
 @pytest.mark.parametrize(
     "mg_type,dim", [("HMG-global", 3), ("HPMG-local", 3), ("HMG-local", 3), ("HMG-global", 2)]
 )
@@ -218,20 +183,6 @@ def test_time_cg_comes_from_the_instrumented_solve(tmp_path, capsys, mg_type, di
     trow = dict(zip(header, row))
     phase_sum = sum(float(trow[f"time_{k}"]) for k in res.phases)
     assert float(trow["time_cg"]) > 0 and phase_sum > 0
-
-
-def test_phase_vectors_are_consistent_and_seeded():
-    """Duplicate slots of a phase input carry one value, drawn from the
-    documented seed in the global layout."""
-    from dealii_multigrid_tpu_torch.utils.phases import _consistent_random
-
-    res, _, levels = tapi.run(small_params("HMG-global"), "cpu")
-    op, fmt = levels[-1].op, levels[-1].fmt
-    v = _consistent_random(op, torch.float64, 101).numpy()
-    g = np.random.default_rng(101).standard_normal(op.n_dofs)
-    assert fmt.n_slots > op.n_dofs                   # the layout has duplicates
-    real = fmt.slot_dof < op.n_dofs
-    assert np.array_equal(v[real], g[fmt.slot_dof[real]]) and not v[~real].any()
 
 
 def meshes_of(G, r=3):
@@ -268,27 +219,6 @@ def test_table_formats_like_jax():
                 t.add_value(k, v)
     assert tt.to_text() == jt.to_text()
     assert TTable().to_text() == ""
-
-
-def test_timer_and_memory_monitor(capsys):
-    acc = [0.0, 0.0]
-    with timer.ScopedTimer(acc, 1):
-        sum(range(1000))
-    assert acc[0] == 0.0 and acc[1] > 0.0
-    assert "VmRSS" in timer.host_memory_stats()
-    stats = timer.device_memory_stats()
-    if torch.cuda.is_available():
-        assert all(s["peak_bytes_in_use"] >= s["bytes_in_use"] for s in stats.values())
-    else:
-        assert stats == {}
-    timer.monitor("quiet")
-    assert capsys.readouterr().out == ""
-    timer.set_monitor(True)
-    try:
-        timer.monitor("loud")
-    finally:
-        timer.set_monitor(False)
-    assert capsys.readouterr().out.startswith("[monitor] loud: ")
 
 
 def test_vtu_refuses_2d(tmp_path):
