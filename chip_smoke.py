@@ -170,7 +170,13 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      line.
 
 The expected launch counts come from the same per-level entries
-(``gc_entries``, ``ls_entries``) that step 5 reads.
+(``gc_entries``, ``ls_entries``) that step 5 reads.  A preconditioner built
+on the card applies itself once eagerly and then captures that application
+as a CUDA graph (solvers/vcycle_graph.py): a path's launches are the calls
+made outside a capture plus each graph's captured calls times its replays,
+and its expected count adds each capture's warm-up.  The result line
+carries the graphs' counts: captures, replays and the eager applications
+by reason.
 """
 
 from __future__ import annotations
@@ -448,15 +454,49 @@ def expected_launches(entries, iterations, setup: bool = True) -> int:
     return n + (1 if entries[0].op.NP > 0 else 0)
 
 
+#: ``utils.phases.GRAPHS.stencil`` when ``counted`` last set the counts to 0
+_REPLAYED_BEFORE: dict = {}
+
+
 def counted(fn):
-    """Run fn with the launch count set to 0 just before; (result, launches)."""
+    """Run fn with the launch counts set to 0 just before; (result,
+    launches).  The launches are the calls that launched at once and those
+    the preconditioners' CUDA graphs made: each replay launches what its
+    capture recorded (``launched_per_dtype``)."""
     from dealii_multigrid_tpu_torch.ops import patch_stencil as ps
+    from dealii_multigrid_tpu_torch.utils.phases import GRAPHS
 
     torch.cuda.synchronize()
     ps.launches.reset()
+    ps.captured.reset()
+    _REPLAYED_BEFORE.clear()
+    _REPLAYED_BEFORE.update(GRAPHS.stencil)
     out = fn()
     torch.cuda.synchronize()
-    return out, ps.launches.count
+    return out, sum(launched_per_dtype().values())
+
+
+def launched_per_dtype() -> dict:
+    """Stencil launches per dtype since ``counted`` set the counts to 0: the
+    calls made outside a capture, and the captured calls x the replays."""
+    from dealii_multigrid_tpu_torch.ops import patch_stencil as ps
+    from dealii_multigrid_tpu_torch.utils.phases import GRAPHS
+
+    out = dict(ps.launches.per_dtype)
+    for k, n in GRAPHS.stencil.items():
+        if n != _REPLAYED_BEFORE.get(k, 0):
+            out[k] = out.get(k, 0) + n - _REPLAYED_BEFORE.get(k, 0)
+    return out
+
+
+def warmup_launches() -> dict:
+    """Stencil launches per dtype of the eager warm-ups since ``counted``
+    set the counts to 0: a preconditioner built on the card applies itself
+    once before it captures that application, so each capture adds what it
+    recorded."""
+    from dealii_multigrid_tpu_torch.ops import patch_stencil as ps
+
+    return dict(ps.captured.per_dtype)
 
 
 def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -473,8 +513,10 @@ def check_solve(name: str, result, entries, launches: int, n_it: int | None = No
                 setup: bool = True, extra_launches: int = 0) -> None:
     """The checks every full-size path makes, and its line of numbers.
     ``extra_launches``: launches the entries do not describe (a coarse CG on
-    the coarsest level's operator), counted by the caller."""
-    expect = expected_launches(entries, result.solve_iterations, setup) + extra_launches
+    the coarsest level's operator), counted by the caller; the warm-ups of
+    the captures (``warmup_launches``) are added here."""
+    expect = (expected_launches(entries, result.solve_iterations, setup) + extra_launches
+              + sum(warmup_launches().values()))
     its = result.solve_iterations
     print(f"{name}: operators (label, NP, S, band, launches per iteration) "
           f"{[(e.label, e.op.NP, e.op.S, e.op.band, e.per_iteration) for e in entries]}",
@@ -1441,7 +1483,7 @@ def phase_x(dev, card: str, measured: dict, paths: dict, done: set) -> None:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         (res, _problem, levels), launches = counted(lambda: api.run(prm, dev))
-        per_dtype = dict(ps.launches.per_dtype)
+        per_dtype = launched_per_dtype()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
         paths[key] = launches
@@ -1454,6 +1496,8 @@ def phase_x(dev, card: str, measured: dict, paths: dict, done: set) -> None:
         its = res.solve_iterations
         outer = sum(its) + 1
         expect = {torch.float32: outer, bf: expected_launches(entries, its) - outer}
+        for k, n in warmup_launches().items():
+            expect[k] = expect.get(k, 0) + n
         print(f"{name}: launches per dtype { {DTYPE_TAG[k]: v for k, v in per_dtype.items()} } "
               f"(expected { {DTYPE_TAG[k]: v for k, v in expect.items()} })", flush=True)
         check(per_dtype == expect, f"{name}: launches per dtype {per_dtype} != {expect}")
@@ -1679,6 +1723,7 @@ def main() -> int:
     from dealii_multigrid_tpu_torch.ops import patch_stencil as ps
     from dealii_multigrid_tpu_torch.solvers import twofloat
     from dealii_multigrid_tpu_torch.solvers.multigrid import PreconditionMG
+    from dealii_multigrid_tpu_torch.utils.phases import GRAPHS
 
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)} ({card})",
@@ -1718,7 +1763,7 @@ def main() -> int:
     (result, _problem, levels), launches = counted(lambda: api.run(prm, dev))
     wall = time.perf_counter() - t0
     paths = {"hmg_global_r7_float": launches,
-             "hmg_global_r7_float_f32": ps.launches.per_dtype.get(torch.float32, 0)}
+             "hmg_global_r7_float_f32": launched_per_dtype().get(torch.float32, 0)}
     print(f"levels (NP, S, NS, use_cross): {[(lv.op.NP, lv.op.S, lv.op.NS, lv.op.use_cross) for lv in levels]}",
           flush=True)
     entries = gc_entries(levels, prm)
@@ -1868,7 +1913,7 @@ def main() -> int:
         (res, _problem, levels), launches = counted(lambda: api.run(prm, dev))
         wall = time.perf_counter() - t0
         paths[key] = launches
-        paths[key + "_f64"] = ps.launches.per_dtype.get(torch.float64, 0)
+        paths[key + "_f64"] = launched_per_dtype().get(torch.float64, 0)
         ls_levels = res.ls_mg.levels
         print(f"{mg_type} r=7: LS levels (n_dofs, NP, S, NS, band) "
               f"{[(lv.fmt.dofh.n_dofs, lv.op.NP, lv.op.S, lv.op.NS, lv.op.band) for lv in ls_levels]}",
@@ -2133,7 +2178,7 @@ def main() -> int:
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
-    }}), flush=True)
+    }, "vcycle_graphs": GRAPHS.summary()}), flush=True)
     return 0
 
 

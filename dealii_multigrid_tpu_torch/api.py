@@ -21,7 +21,7 @@ its part of every level (parallel/sharding.py, ``dispatch_solve``).
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -58,9 +58,10 @@ from .solvers.local_smoothing import (
     build_local_smoothing_mg_hybrid,
 )
 from .solvers.multigrid import Multigrid, PreconditionMG
+from .solvers.vcycle_graph import VCycleGraph, static_reason
 from .utils.device import resolve_device
 from .utils.params import MultigridParameters, RunParameters
-from .utils.phases import PhaseRecorder, checked, instrument, setup_span
+from .utils.phases import PRECONDITION, PhaseRecorder, checked, instrument, setup_span, span
 
 _DTYPES = {
     "float": torch.float32,
@@ -589,8 +590,29 @@ class PreconditionLS:
     lsmg: LocalSmoothingMGHybrid | LocalSmoothingMG
     keep: torch.Tensor          # 0 on the active mesh's constrained DoFs / slots
     outer_dtype: torch.dtype
+    #: on a CUDA device, the application as one CUDA graph (as PreconditionMG's)
+    graph: VCycleGraph | None = field(init=False, default=None, compare=False, repr=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "graph", VCycleGraph.prepare(
+            self.graph_reason(), self._apply_in_place, self.keep, self.keep.dtype,
+            self.outer_dtype,
+        ))
+
+    def graph_reason(self) -> str | None:
+        """Why the application cannot be captured, or None."""
+        ls = self.lsmg
+        copies = [c for lev in ls.levels for c in (getattr(lev, "to_ext", None),
+                                                   getattr(lev, "from_ext", None))]
+        return static_reason((ls.hook,), (*ls.levels, *ls.transfers, *copies), ls.coarse_solve)
+
+    def _apply_in_place(self, b_level: torch.Tensor) -> None:
+        b_level.copy_(self.lsmg.vmult(b_level) * self.keep)
 
     def vmult(self, b: torch.Tensor) -> torch.Tensor:
+        if self.graph is not None and self.graph.takes(b):
+            with span(PRECONDITION):
+                return self.graph.replay(b)
         x = self.lsmg.vmult(b.to(self.keep.dtype)) * self.keep
         return x.to(self.outer_dtype)
 

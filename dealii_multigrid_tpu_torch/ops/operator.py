@@ -56,7 +56,7 @@ def distribute_transpose(r: torch.Tensor, ct: ConstraintTable) -> torch.Tensor:
         return r
     contrib = (ct.weights * r[ct.slave][:, None]).to(r.dtype)
     out = r.clone()
-    out[ct.slave] = 0
+    out.index_fill_(0, ct.slave, 0)
     return ct.master_sum.add_into(out, contrib.reshape(-1))
 
 
@@ -95,14 +95,14 @@ class LaplaceOperator:
         # homogeneous operator must see them as 0 (C = distribute ∘ zero).
         if self.dirichlet.shape[0]:
             u = u.clone()
-            u[self.dirichlet] = 0
+            u.index_fill_(0, self.dirichlet, 0)
         return distribute(u, self.hanging)
 
     def apply_ct(self, r: torch.Tensor) -> torch.Tensor:
         r = distribute_transpose(r, self.hanging)
         if self.dirichlet.shape[0]:
             r = r.clone()
-            r[self.dirichlet] = 0
+            r.index_fill_(0, self.dirichlet, 0)
         return r
 
     def vmult(self, u: torch.Tensor) -> torch.Tensor:

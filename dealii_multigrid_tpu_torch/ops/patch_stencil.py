@@ -63,8 +63,12 @@ class LaunchCounter:
         self.per_dtype[dtype] = self.per_dtype.get(dtype, 0) + 1
 
 
-#: launches of the CUDA kernel (the plain CPU path does not count)
+#: launches of the CUDA kernel (the plain CPU path does not count), made
+#: at the call; a call while the stream captures a CUDA graph counts in
+#: ``captured`` instead: it launches when the graph replays
+#: (``utils.phases.GRAPHS.stencil``)
 launches = LaunchCounter()
+captured = LaunchCounter()
 
 
 class _Library:
@@ -249,5 +253,5 @@ def patch_stencil(
         NP, S, band, device, torch.cuda.current_stream(xp.device).cuda_stream,
     )
     _raise_on(lib, err, "launch")
-    launches.add(xp.dtype)
+    (captured if torch.cuda.is_current_stream_capturing() else launches).add(xp.dtype)
     return out

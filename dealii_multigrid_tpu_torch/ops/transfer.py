@@ -56,7 +56,7 @@ class TwoLevelTransfer:
         # (C_c = distribute o zero, C_c^T = zero o distribute^T)
         if self.coarse_dirichlet.shape[0]:
             u_c = u_c.clone()
-            u_c[self.coarse_dirichlet] = 0
+            u_c.index_fill_(0, self.coarse_dirichlet, 0)
         u = distribute(u_c, self.coarse_hanging)
         parts = [
             (torch.matmul(u[b.coarse_dofs], b.matrix.T) * self.fine_weight[b.fine_dofs]).reshape(-1)
@@ -64,18 +64,18 @@ class TwoLevelTransfer:
         ]
         out = self.prolong_sum.scatter(torch.cat(parts))
         if self.fine_constrained.shape[0]:
-            out[self.fine_constrained] = 0
+            out.index_fill_(0, self.fine_constrained, 0)
         return out
 
     def restrict(self, r_f: torch.Tensor) -> torch.Tensor:
         if self.fine_constrained.shape[0]:
             r_f = r_f.clone()
-            r_f[self.fine_constrained] = 0
+            r_f.index_fill_(0, self.fine_constrained, 0)
         rw = r_f * self.fine_weight
         parts = [torch.matmul(rw[b.fine_dofs], b.matrix).reshape(-1) for b in self.buckets]
         acc = distribute_transpose(self.restrict_sum.scatter(torch.cat(parts)), self.coarse_hanging)
         if self.coarse_dirichlet.shape[0]:
-            acc[self.coarse_dirichlet] = 0
+            acc.index_fill_(0, self.coarse_dirichlet, 0)
         return acc
 
 

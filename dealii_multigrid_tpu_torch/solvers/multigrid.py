@@ -14,18 +14,21 @@ profiled solve of ``ProfilePhases`` runs a copy whose hook times each phase
 at each level (``utils.phases.PhaseRecorder``), and debug mode
 (``MGTPU_DEBUG``) a copy whose hook is ``finite_check``, so the timed solves
 carry no event, no check and no branch.  A whole application of
-``PreconditionMG`` is the range ``mgtpu.vcycle.precondition``.
+``PreconditionMG`` is the range ``mgtpu.vcycle.precondition``.  Built on a
+CUDA device, ``PreconditionMG`` captures its application as one CUDA graph
+and replays it (solvers/vcycle_graph.py).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
 
 # finite_check, debug mode's hook, is named here beside the default one
 from ..utils.phases import PRECONDITION, finite_check, span, untimed  # noqa: F401
+from .vcycle_graph import VCycleGraph, static_reason
 
 
 def residual(op, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -73,15 +76,38 @@ class PreconditionMG:
     """Precision boundary between the outer Krylov solve and the MG levels
     (reference: float MG levels under a double outer CG,
     multigrid_throughput.cc:528-550); the two casts are the phases
-    ``to_mg`` and ``to_global``."""
+    ``to_mg`` and ``to_global``.  On a CUDA device the whole application
+    is one CUDA graph, captured here and replayed where it is sound
+    (solvers/vcycle_graph.py); ``graph`` is no init field, so a copy made
+    with ``dataclasses.replace`` (``utils.phases.instrument``) decides
+    anew."""
 
     mg: Multigrid
     outer_dtype: torch.dtype
     hook: Callable = untimed
+    graph: VCycleGraph | None = field(init=False, default=None, compare=False, repr=False)
+
+    def __post_init__(self):
+        mg = self.mg
+        fine = getattr(mg.smoothers[-1], "inv_diag", None) if mg.n_levels > 1 else None
+        object.__setattr__(self, "graph", VCycleGraph.prepare(
+            self.graph_reason(), self._apply_in_place, fine, mg.operators[-1].dtype,
+            self.outer_dtype,
+        ))
+
+    def graph_reason(self) -> str | None:
+        """Why the application cannot be captured, or None."""
+        mg = self.mg
+        return static_reason((self.hook, mg.hook), (*mg.operators, *mg.transfers), mg.coarse_solve)
+
+    def _apply_in_place(self, b_level: torch.Tensor) -> None:
+        b_level.copy_(self.mg.vmult(b_level))
 
     def vmult(self, b: torch.Tensor) -> torch.Tensor:
         ph, top = self.hook, self.mg.n_levels - 1
         with span(PRECONDITION):
+            if self.graph is not None and self.graph.takes(b):
+                return self.graph.replay(b)
             b_level = ph("to_mg", top, b.to, self.mg.operators[-1].dtype)
             x = self.mg.vmult(b_level)
             return ph("to_global", top, x.to, self.outer_dtype)

@@ -41,6 +41,13 @@ trace reader would count as device activity).  The set-up's spans
 synchronize on CUDA, kept per (path of names) in ``SETUP``, and passed to a
 recording profiler as the same ranges.
 
+CUDA graphs.  A preconditioner built on the card replays its application
+as one CUDA graph (solvers/vcycle_graph.py); a replay runs no hook, so it
+records no phase span, only ``mgtpu.vcycle.graph_replay`` inside
+``mgtpu.vcycle.precondition``.  A copy made by ``instrument`` or
+``checked`` runs eagerly.  ``GRAPHS`` counts the captures, the replays and
+the eager applications on CUDA by reason.
+
 This module imports nothing else of the package when it is imported, so
 that ``mesh/``, ``ops/`` and ``solvers/`` can import it.
 """
@@ -69,6 +76,9 @@ PHASE_LAYER = {
 }
 #: a whole preconditioner application (PreconditionMG, the LS V-cycle)
 PRECONDITION = PREFIX + "vcycle.precondition"
+#: the launch of a preconditioner's CUDA graph (solvers/vcycle_graph.py),
+#: inside PRECONDITION
+GRAPH_REPLAY = PREFIX + "vcycle.graph_replay"
 CG_SOLVE = PREFIX + "cg.solve"
 CG_ITERATION = PREFIX + "cg.iteration"
 _NULL = nullcontext()
@@ -307,3 +317,37 @@ def setup_span(name: str):
                 return fn(*args, **kwargs)
         return call
     return wrap
+
+
+# ---------------------------------------------------------------------------
+# the preconditioners' CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+class GraphCounts:
+    """How often the preconditioners' CUDA graphs (solvers/vcycle_graph.py)
+    engage: ``captures`` and their ``capture_s`` (host seconds, warm-up
+    included), ``replays``, and ``eager``: the applications on CUDA that ran
+    without their graph, per reason ("hook", "sharded", "coarse",
+    "capturing", "input").  ``stencil`` holds the patch-stencil launches the
+    replays made, per dtype (each replay adds the calls its capture
+    recorded; ``ops.patch_stencil.launches`` counts only calls that launch
+    at once)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.captures = 0
+        self.capture_s = 0.0
+        self.replays = 0
+        self.eager: dict = {}
+        self.stencil: dict = {}
+
+    def summary(self) -> dict:
+        return {"captures": self.captures, "replays": self.replays,
+                "eager": dict(self.eager), "capture_s": self.capture_s}
+
+
+#: the process's graph counts
+GRAPHS = GraphCounts()

@@ -462,3 +462,77 @@ def test_bf16_solve_on_card_matches_cpu(cuda, monkeypatch, mg_type, number):
     assert res_gpu.converged and res_gpu.n_iterations == res_cpu.n_iterations
     rel = (res_gpu.x.cpu().double() - res_cpu.x.double()).norm() / res_cpu.x.double().norm()
     assert float(rel) <= 1e-5
+
+
+# --- the preconditioners' CUDA graphs (solvers/vcycle_graph.py) ---
+
+
+@pytest.fixture(scope="module", params=["HMG-global", "HMG-local"])
+def graphed(request):
+    """(preconditioner built on the card, its eager application, the outer
+    operator, the right-hand side, the graph counts since the build) at
+    quadrant r=4 p=4, double over float levels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (CUDA graphs have no CPU mode)")
+    from dealii_multigrid_tpu_torch.solvers.multigrid import PreconditionMG
+    from dealii_multigrid_tpu_torch.utils.phases import GRAPHS
+
+    dev = torch.device("cuda:0")
+    prm = small_params(request.param, 4, 4, "double", "float")
+    res, _, levels = api.run(prm, dev)
+    fine = levels[-1]
+    outer_op, rhs, _ = api._outer_problem(prm, fine, dev)
+    GRAPHS.reset()
+    if res.mg is not None:
+        precond = PreconditionMG(res.mg, torch.float64)
+
+        def eager(b):
+            return res.mg.vmult(b.to(torch.float32)).to(torch.float64)
+    else:
+        precond = api.PreconditionLS(res.ls_mg, fine.op.constrained_keep, torch.float64)
+
+        def eager(b):
+            return (res.ls_mg.vmult(b.to(torch.float32)) * precond.keep).to(torch.float64)
+    torch.cuda.synchronize()
+    return precond, eager, outer_op, rhs, GRAPHS.summary()
+
+
+def test_replay_equals_the_eager_application_bit_for_bit(graphed):
+    precond, eager, _op, rhs, graphs = graphed
+    assert precond.graph is not None and precond.graph.reason is None
+    gen = torch.Generator().manual_seed(16)
+    for _ in range(3):
+        b = torch.randn(rhs.shape, generator=gen, dtype=torch.float64).to(rhs.device)
+        assert torch.equal(precond.vmult(b), eager(b))
+
+
+def test_a_kept_output_survives_later_applications(graphed):
+    precond, _eager, _op, rhs, _graphs = graphed
+    z = precond.vmult(rhs)
+    kept = z.clone()
+    precond.vmult(2.0 * rhs)
+    precond.vmult(-rhs)
+    assert torch.equal(z, kept)
+
+
+def test_cg_with_replays_equals_cg_with_the_eager_v_cycle(graphed):
+    from dealii_multigrid_tpu_torch.solvers.cg import cg_solve
+
+    precond, eager, op, rhs, _graphs = graphed
+    got, want = (cg_solve(op.vmult, rhs, preconditioner=pre, reltol=1e-4, dot=op.dot)
+                 for pre in (precond.vmult, eager))
+    assert got.converged and got.n_iterations == want.n_iterations
+    assert torch.equal(got.x, want.x)
+
+
+def test_one_capture_and_one_replay_per_application(graphed):
+    from dealii_multigrid_tpu_torch.utils.phases import GRAPHS
+
+    precond, _eager, _op, rhs, built = graphed
+    assert built["captures"] == 1 and built["replays"] == 0 and built["eager"] == {}
+    before = GRAPHS.summary()
+    for _ in range(4):
+        precond.vmult(rhs)
+    after = GRAPHS.summary()
+    assert after["replays"] == before["replays"] + 4 and after["eager"] == before["eager"]
+    assert after["captures"] == before["captures"]
