@@ -613,8 +613,15 @@ def print_amg(name: str, amg, card: str) -> None:
           f"{[(d['rows'], d['K_A'], d['K_P'], d['K_PT'], round(d['bytes'] / 2**20, 2), round(d['omega'], 4)) for d in rows]}; "
           f"dense coarsest factor {tuple(amg.chol.shape)} {amg.chol.dtype}, "
           f"{amg.chol.numel() * amg.chol.element_size() / 2**20:.1f} MiB; tables "
-          f"{sum(d['bytes'] for d in rows) / 2**20:.1f} MiB; cycles {amg.n_cycles}; set-up seconds "
-          f"{ {k: round(v, 3) for k, v in amg.setup_seconds.items()} }; card {card}", flush=True)
+          f"{sum(d['bytes'] for d in rows) / 2**20:.1f} MiB; cycles {amg.n_cycles}; the process's AMG "
+          f"set-up spans so far (s) {amg_setup()}; card {card}", flush=True)
+
+
+def amg_setup() -> dict:
+    """The AMG set-up spans' seconds so far in the process."""
+    from dealii_multigrid_tpu_torch.utils.phases import SETUP
+
+    return {n: round(SETUP.seconds(f"mgtpu.setup.amg_{n}"), 3) for n in ("build", "upload", "factor")}
 
 
 #: the CLI's columns with ProfilePhases and Verbosity on, in order

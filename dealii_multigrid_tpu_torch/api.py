@@ -467,7 +467,8 @@ def mg_solve(
         _fence(device)
         res_p, seconds = recorder.span(lambda: solve(hooked))
         n_it = max(res_p.n_iterations, 1)
-        phases = {k: v / n_it for k, v in recorder.seconds.items()}
+        # the V-cycle's phases, an AMG coarse solve's counted in cs
+        phases = {k: v / n_it for k, v in recorder.vcycle_seconds().items()}
         phase_iteration_time = seconds / n_it
         phases_per_level = recorder.per_level(n_it)
     # a double-single x rounds to float32 at the API surface

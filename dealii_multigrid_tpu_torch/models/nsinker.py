@@ -47,7 +47,7 @@ from ..solvers.chebyshev import ChebyshevSmoother, estimate_eigenvalue_ranges
 from ..solvers.coarse import DirectCoarseSolver, assemble_sparse_matrix
 from ..solvers.multigrid import Multigrid, PreconditionMG
 from ..utils.device import resolve_device
-from ..utils.phases import checked
+from ..utils.phases import SETUP, checked
 from .stokes import (
     StokesBlockPreconditioner,
     StokesOperator,
@@ -347,13 +347,16 @@ def make_wbfbt_schur(
     Kp = (B_csr @ sp.diags(dinv) @ B_csr.T).tocsr()
     shift = 1e-10 * float(np.abs(Kp.diagonal()).max())
     t_kp = time.perf_counter() - t0
+    stages = ("mgtpu.setup.amg_build", "mgtpu.setup.amg_upload", "mgtpu.setup.amg_factor")
+    before = [SETUP.seconds(n) for n in stages]
     amg = build_amg(
         (Kp + shift * sp.eye(Kp.shape[0])).tocsr(), dtype=dtype, device=device, n_cycles=1
     )
     if seconds is not None:
+        build, upload, factor = (SETUP.seconds(n) - t for n, t in zip(stages, before))
         seconds["kp"] = t_kp
-        seconds["amg_build"] = amg.setup_seconds["build"]
-        seconds["amg_upload"] = amg.setup_seconds["upload"] + amg.setup_seconds["factor"]
+        seconds["amg_build"] = build
+        seconds["amg_upload"] = upload + factor
     return WBFBTSchurSolve(
         kp_solve=checked(KpCGSolve(amg, _to_ell(Kp, dtype, device=device), kp_cg_iterations), "kp"),
         B=_to_ell(B_csr, dtype, device=device),

@@ -20,14 +20,15 @@ two solves of one run).
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
+from typing import Callable
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.phases import AMG_SHAPE, SETUP, untimed
 
 
 @dataclass(frozen=True)
@@ -169,42 +170,65 @@ class AMGLevel:
 
 @dataclass(frozen=True)
 class AMGPreconditioner:
-    """V-cycle smoothed-aggregation AMG (finest level first)."""
+    """V-cycle smoothed-aggregation AMG (finest level first).
+
+    Every step of an application runs through ``hook`` (as
+    ``Multigrid.hook``: ``hook(phase, level, fn, *args)``, level 0 the
+    finest here), in three phases that split it: ``amg_smooth`` (the
+    Jacobi sweeps with their products), ``amg_transfer`` (the residual,
+    the restriction by P^T, the prolongation by P and the correction, and
+    between cycles the finest level's residual and correction) and
+    ``amg_dense`` (the coarsest level's triangular pair)."""
 
     levels: tuple
     chol: torch.Tensor        # dense Cholesky factor of the coarsest matrix
     n_cycles: int = 1
     n_smooth: int = 2
-    #: seconds of the set-up stages ("build": host SciPy and ELL tables,
-    #: "upload": host arrays to device tensors, "factor": the dense Cholesky;
-    #: the caller may add more)
-    setup_seconds: dict = field(default_factory=dict, compare=False)
+    hook: Callable = field(default=untimed, compare=False)
 
-    def _smooth(self, lev: AMGLevel, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    def _smooth(self, lev: AMGLevel, x: torch.Tensor | None, b: torch.Tensor) -> torch.Tensor:
+        """``n_smooth`` damped-Jacobi sweeps from ``x`` (None: zero)."""
+        if x is None:
+            x = torch.zeros_like(b)
         for _ in range(self.n_smooth):
             x = x + lev.omega * lev.inv_diag * (b - lev.A.matvec(x))
         return x
 
+    @staticmethod
+    def _residual(A: ELLMatrix, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        return b - A.matvec(x)
+
+    @staticmethod
+    def _restrict(A: ELLMatrix, P: ELLMatrix, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        return P.rmatvec(b - A.matvec(x))
+
+    @staticmethod
+    def _correct(P: ELLMatrix, x: torch.Tensor, xc: torch.Tensor) -> torch.Tensor:
+        return x + P.matvec(xc)
+
+    def _dense(self, b: torch.Tensor) -> torch.Tensor:
+        y = torch.linalg.solve_triangular(
+            self.chol, b.to(self.chol.dtype).unsqueeze(1), upper=False
+        )
+        x = torch.linalg.solve_triangular(self.chol.T, y, upper=True)
+        return x.squeeze(1).to(b.dtype)
+
     def _v(self, k: int, b: torch.Tensor) -> torch.Tensor:
-        lev = self.levels[k]
+        ph, lev = self.hook, self.levels[k]
         if k == len(self.levels) - 1:
-            y = torch.linalg.solve_triangular(
-                self.chol, b.to(self.chol.dtype).unsqueeze(1), upper=False
-            )
-            x = torch.linalg.solve_triangular(self.chol.T, y, upper=True)
-            return x.squeeze(1).to(b.dtype)
-        x = self._smooth(lev, torch.zeros_like(b), b)
-        r = b - lev.A.matvec(x)
+            return ph("amg_dense", k, self._dense, b)
+        x = ph("amg_smooth", k, self._smooth, lev, None, b)
         Pc = self.levels[k + 1].P
-        xc = self._v(k + 1, Pc.rmatvec(r))
-        x = x + Pc.matvec(xc)
-        return self._smooth(lev, x, b)
+        xc = self._v(k + 1, ph("amg_transfer", k, self._restrict, lev.A, Pc, b, x))
+        x = ph("amg_transfer", k, self._correct, Pc, x, xc)
+        return ph("amg_smooth", k, self._smooth, lev, x, b)
 
     def vmult(self, b: torch.Tensor) -> torch.Tensor:
+        ph, A = self.hook, self.levels[0].A
         x = self._v(0, b)
         for _ in range(self.n_cycles - 1):
-            r = b - self.levels[0].A.matvec(x)
-            x = x + self._v(0, r)
+            dx = self._v(0, ph("amg_transfer", 0, self._residual, A, b, x))
+            x = ph("amg_transfer", 0, torch.add, x, dx)
         return x
 
     __call__ = vmult
@@ -235,11 +259,6 @@ def factor_dtype(level_dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if level_dtype == torch.bfloat16 else level_dtype
 
 
-def _fence(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _lam_max_dinv_a(A: sp.csr_matrix, d: np.ndarray, iters: int = 12) -> float:
     """Power-iteration estimate of lambda_max(D^-1 A) (host, SciPy).
 
@@ -263,26 +282,12 @@ def _lam_max_dinv_a(A: sp.csr_matrix, d: np.ndarray, iters: int = 12) -> float:
     return 1.05 * lam
 
 
-def build_amg(
-    A: sp.csr_matrix,
-    dtype: torch.dtype = torch.float32,
-    device: torch.device | str | None = None,
-    theta: float = 0.02,
-    omega: float = 2.0 / 3.0,
-    coarse_size: int = 800,
-    max_levels: int = 12,
-    n_cycles: int = 1,
-    aggressive_levels: int = 0,
-    n_smooth: int = 2,
-    strength: str = "scaled",
-) -> AMGPreconditioner:
-    """The hierarchy of ``A`` on ``device`` (None: the card; a CPU build
-    passes ``"cpu"``).  ``aggressive_levels``: on the first k coarsening
-    steps, aggregate the aggregate graph a second time (HYPRE's aggressive
-    coarsening analog — coarsens ~2x faster per level at the cost of extra
-    iterations)."""
-    device = resolve_device(device)
-    t_start = time.perf_counter()
+def _host_hierarchy(
+    A: sp.csr_matrix, theta: float, omega: float, coarse_size: int, max_levels: int,
+    aggressive_levels: int, strength: str,
+) -> tuple[list, sp.csr_matrix]:
+    """The host levels (A, P or None, 1/diag, omega), finest first, and the
+    coarsest matrix (SciPy)."""
     host_levels = []          # (A, P or None, 1/diag, omega), finest first
     A = A.tocsr()
     P_for_level = None
@@ -341,46 +346,81 @@ def build_amg(
         P = (P0 - omega * (Dinv @ (A @ P0))).tocsr()
         A = (P.T @ A @ P).tocsr()
         P_for_level = P
-    # the coarsest matrix, dense, with the JAX package's diagonal shift
-    Ad = A.toarray()
-    Ad.flat[:: Ad.shape[0] + 1] += 1e-12 * max(Ad.diagonal().max(), 1.0)
-    # the ELL tables on the host, then everything to the device
-    host_ell = [
-        (_to_ell(Al, dtype), None if Pl is None else _to_ell(Pl, dtype, with_transpose=True))
-        for Al, Pl, _, _ in host_levels
-    ]
-    t_built = time.perf_counter()
+    return host_levels, A
+
+
+def build_amg(
+    A: sp.csr_matrix,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str | None = None,
+    theta: float = 0.02,
+    omega: float = 2.0 / 3.0,
+    coarse_size: int = 800,
+    max_levels: int = 12,
+    n_cycles: int = 1,
+    aggressive_levels: int = 0,
+    n_smooth: int = 2,
+    strength: str = "scaled",
+) -> AMGPreconditioner:
+    """The hierarchy of ``A`` on ``device`` (None: the card; a CPU build
+    passes ``"cpu"``).  ``aggressive_levels``: on the first k coarsening
+    steps, aggregate the aggregate graph a second time (HYPRE's aggressive
+    coarsening analog — coarsens ~2x faster per level at the cost of extra
+    iterations)."""
+    device = resolve_device(device)
+    with SETUP.span("mgtpu.setup.amg_build"):
+        host_levels, A = _host_hierarchy(
+            A, theta, omega, coarse_size, max_levels, aggressive_levels, strength
+        )
+        # the coarsest matrix, dense, with the JAX package's diagonal shift;
+        # its lower triangle's nonzeros, diagonal included, for AMG_SHAPE
+        lower = sp.tril(A, -1, format="csr")
+        dense_nnz = int(lower.count_nonzero()) + A.shape[0]
+        Ad = A.toarray()
+        Ad.flat[:: Ad.shape[0] + 1] += 1e-12 * max(Ad.diagonal().max(), 1.0)
+        # the ELL tables on the host, then everything to the device
+        host_ell = [
+            (_to_ell(Al, dtype), None if Pl is None else _to_ell(Pl, dtype, with_transpose=True))
+            for Al, Pl, _, _ in host_levels
+        ]
 
     def put(m: ELLMatrix | None) -> ELLMatrix | None:
         if m is None:
             return None
         return ELLMatrix(m.idx.to(device), m.vals.to(device), m.shape, put(m.t))
 
-    levels = tuple(
-        AMGLevel(put(Ae), put(Pe), torch.as_tensor(dinv, dtype=dtype, device=device), om)
-        for (Ae, Pe), (_, _, dinv, om) in zip(host_ell, host_levels)
-    )
-    Ad_d = torch.as_tensor(Ad, device=device)
-    _fence(device)
-    t_up = time.perf_counter()
+    with SETUP.span("mgtpu.setup.amg_upload"):
+        levels = tuple(
+            AMGLevel(put(Ae), put(Pe), torch.as_tensor(dinv, dtype=dtype, device=device), om)
+            for (Ae, Pe), (_, _, dinv, om) in zip(host_ell, host_levels)
+        )
+        Ad_d = torch.as_tensor(Ad, device=device)
     # dense Cholesky on the device, in float64, kept in factor_dtype.
     # Rows that see the identity (Dirichlet and hanging DoFs) are singleton
     # aggregates on every level, so the coarsest matrix never falls below
     # their count (25,802 of the 283,109 rows of quadrant r=7 at p=1): too
     # large to factor on the host in reasonable time.
-    chol64 = torch.linalg.cholesky(Ad_d)
-    del Ad_d
-    chol = chol64.to(factor_dtype(dtype))
-    del chol64
-    _fence(device)
-    seconds = {
-        "build": t_built - t_start,
-        "upload": t_up - t_built,
-        "factor": time.perf_counter() - t_up,
-    }
-    return AMGPreconditioner(
-        levels, chol, n_cycles=n_cycles, n_smooth=n_smooth, setup_seconds=seconds
-    )
+    with SETUP.span("mgtpu.setup.amg_factor"):
+        chol64 = torch.linalg.cholesky(Ad_d)
+        del Ad_d
+        chol = chol64.to(factor_dtype(dtype))
+        del chol64
+    amg = AMGPreconditioner(levels, chol, n_cycles=n_cycles, n_smooth=n_smooth)
+    AMG_SHAPE.clear()
+    AMG_SHAPE.update({
+        "levels": [
+            {"rows": Al.shape[0], "nnz_A": int(Al.nnz), "nnz_P": 0 if Pl is None else int(Pl.nnz),
+             **{k: d[k] for k in ("K_A", "K_P", "K_PT")}}
+            for (Al, Pl, _, _), d in zip(host_levels, amg.describe())
+        ],
+        "value_dtype": str(dtype).replace("torch.", ""),
+        "dense_rows": chol.shape[0],
+        "dense_nnz": dense_nnz,
+        "factor_dtype": str(chol.dtype).replace("torch.", ""),
+        "n_cycles": n_cycles,
+        "n_smooth": n_smooth,
+    })
+    return amg
 
 
 def build_amg_boomer(

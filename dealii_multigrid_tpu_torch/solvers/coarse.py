@@ -15,7 +15,7 @@ smoothed-aggregation AMG of solvers/amg.py above that.
 
 from __future__ import annotations
 
-import time
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -150,6 +150,21 @@ def find_amg(solver):
     return inner if isinstance(inner, AMGPreconditioner) else None
 
 
+def with_amg_hook(solver, hook):
+    """A copy of the coarse solver ``solver`` whose AMGPreconditioner (where
+    ``find_amg`` finds one) runs its phases through ``hook``; ``solver``
+    itself where it holds none."""
+    if isinstance(solver, AMGPreconditioner):
+        return dataclasses.replace(solver, hook=hook)
+    for name in ("preconditioner", "inner"):
+        part = getattr(solver, name, None)
+        if part is not None and dataclasses.is_dataclass(solver):
+            new = with_amg_hook(part, hook)
+            if new is not part:
+                return dataclasses.replace(solver, **{name: new})
+    return solver
+
+
 def make_cg_coarse_solver(
     op, preconditioner=None, maxiter: int = 10000, abstol: float = 1e-20,
     reltol: float = 1e-4, use_op_dot: bool = False,
@@ -187,13 +202,10 @@ def make_algebraic_solver(
     wrap it for hybrid slot vectors."""
     if force_direct or dofh.n_dofs <= DIRECT_SOLVER_MAX_DOFS:
         return make_direct_coarse_solver(dofh, hanging, dtype, device, to_idx, from_idx)
-    t0 = time.perf_counter()
     A = assemble_sparse_matrix(dofh, hanging)
-    t_assemble = time.perf_counter() - t0
     n_cycles = mg_data.coarse_solver.n_cycles if mg_data else 1
     build = build_amg_boomer if flavor == "boomer" else build_amg
     amg = build(A, dtype=dtype, device=device, n_cycles=n_cycles)
-    amg.setup_seconds["assemble"] = t_assemble
     if to_idx is None:
         return amg
     return SlottedSolver(amg, to_idx, from_idx)

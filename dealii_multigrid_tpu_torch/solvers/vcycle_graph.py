@@ -23,7 +23,8 @@ An application replays only where capture is sound, which the objects
 themselves show; any other runs eagerly, exactly as without a graph:
 
   * "hook": a phase hook other than ``utils.phases.untimed`` (the phase
-    recorder, debug mode's check) times or checks each phase;
+    recorder, debug mode's check) times or checks each phase, the AMG
+    coarse solve's included;
   * "sharded": a level, transfer or copy holds a rank communicator (its
     collectives cannot be captured);
   * "coarse": the coarse solve may read back to the host (an inner CG) or
@@ -48,7 +49,7 @@ import torch
 
 from ..utils.phases import GRAPH_REPLAY, GRAPHS, span, untimed
 from .amg import AMGPreconditioner
-from .coarse import DirectCoarseSolver, SlottedSolver
+from .coarse import DirectCoarseSolver, SlottedSolver, find_amg
 
 
 def _has_comm(obj) -> bool:
@@ -70,7 +71,8 @@ def static_reason(hooks, parts, coarse) -> str | None:
     """Why a preconditioner with the phase ``hooks``, the level objects
     ``parts`` (operators, transfers, level copies) and the ``coarse`` solve
     cannot be captured, or None where it can."""
-    if any(h is not untimed for h in hooks):
+    amg = find_amg(coarse)
+    if any(h is not untimed for h in (*hooks, getattr(amg, "hook", untimed))):
         return "hook"
     if any(_has_comm(p) for p in parts) or _has_comm(coarse):
         return "sharded"

@@ -48,6 +48,15 @@ records no phase span, only ``mgtpu.vcycle.graph_replay`` inside
 ``checked`` runs eagerly.  ``GRAPHS`` counts the captures, the replays and
 the eager applications on CUDA by reason.
 
+AMG.  An AMG coarse solve (solvers/amg.py) runs its own phases through its
+own hook, ``amg_smooth``, ``amg_transfer`` and ``amg_dense`` at its own
+levels, inside the multigrid's ``cs``; ``instrument`` hooks them with the
+V-cycle's.  Their spans end in ``@A<level>`` (``mgtpu.amg.amg_dense@A6``,
+0 the AMG's finest), so that no reader takes them for a multigrid level.
+Its set-up spans are ``mgtpu.setup.amg_build``, ``.amg_upload`` and
+``.amg_factor``, and ``AMG_SHAPE`` holds the shape of the latest
+hierarchy built.
+
 This module imports nothing else of the package when it is imported, so
 that ``mesh/``, ``ops/`` and ``solvers/`` can import it.
 """
@@ -65,7 +74,15 @@ import torch.autograd.profiler as _autograd_profiler
 from torch._C._profiler import _RecordFunctionFast
 
 PHASES = ("pre", "residuum", "res", "cs", "pro", "edge_pro", "post")
-KEYS = PHASES + ("to_mg", "to_global")
+#: the V-cycle's phases and its boundary with the outer solve: the phase
+#: times ``api.mg_solve`` reports (the CLI's columns)
+VCYCLE_KEYS = PHASES + ("to_mg", "to_global")
+#: the phases of an AMG coarse solve (solvers/amg.py), at the AMG's own
+#: levels (0 the finest): its Jacobi sweeps, its residuals and transfers,
+#: its dense coarsest solve.  They split the AMG's application and nest
+#: inside the multigrid's ``cs``.
+AMG_PHASES = ("amg_smooth", "amg_transfer", "amg_dense")
+KEYS = VCYCLE_KEYS + AMG_PHASES
 PREFIX = "mgtpu."
 #: the layer in a phase's span name (BENCHMARK.json's per-layer metrics);
 #: to_mg / to_global are the V-cycle's boundary with the outer solve
@@ -73,6 +90,7 @@ PHASE_LAYER = {
     "pre": "smoother", "post": "smoother", "residuum": "operator",
     "res": "transfer", "pro": "transfer", "cs": "coarse", "edge_pro": "ls_interface",
     "to_mg": "vcycle", "to_global": "vcycle",
+    "amg_smooth": "amg", "amg_transfer": "amg", "amg_dense": "amg",
 }
 #: a whole preconditioner application (PreconditionMG, the LS V-cycle)
 PRECONDITION = PREFIX + "vcycle.precondition"
@@ -86,7 +104,9 @@ _NULL = nullcontext()
 
 def phase_span_name(phase: str, level: int | None) -> str:
     layer = PHASE_LAYER.get(phase, "vcycle")
-    return f"{PREFIX}{layer}.{phase}" + ("" if level is None else f"@L{level}")
+    if level is None:
+        return f"{PREFIX}{layer}.{phase}"
+    return f"{PREFIX}{layer}.{phase}@{'A' if phase in AMG_PHASES else 'L'}{level}"
 
 
 def spanned(name: str, fn: Callable, *args):
@@ -128,14 +148,20 @@ def finite_check(phase: str, level: int | None, fn: Callable, *args):
 class PhaseRecorder:
     """A phase hook that times every call: CUDA events on the card,
     ``perf_counter`` on the CPU.  ``span`` times a whole solve the same
-    way, so the phases' sum is at most the span.  ``seconds`` holds the
-    sums per phase, ``level_seconds`` per (phase, level)."""
+    way.  ``seconds`` holds the sums per phase (every key of ``KEYS``),
+    ``level_seconds`` per (phase, level), each of a phase's own time: a
+    phase that runs inside another is taken out of the enclosing one's.
+    The AMG phases (``AMG_PHASES``, at the AMG's own levels) run inside
+    ``cs``, which then holds the coarse solve's time outside the AMG.  So
+    the phases are disjoint parts of the solve and their sum is at most
+    the span; ``vcycle_seconds`` folds the AMG back into ``cs``."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
         self.seconds = dict.fromkeys(KEYS, 0.0)
         self.level_seconds: dict = {}
-        self._events: list = []
+        self._events: list = []     # (phase, level, start, stop, inner events)
+        self._open: list = []       # the inner events of each running phase
 
     def _mark(self):
         if self.cuda:
@@ -149,8 +175,14 @@ class PhaseRecorder:
 
     def __call__(self, phase: str, level: int, fn, *args):
         start = self._mark()
-        out = untimed(phase, level, fn, *args)
-        self._events.append((phase, level, start, self._mark()))
+        self._open.append([])
+        try:
+            out = untimed(phase, level, fn, *args)
+        finally:
+            inner = self._open.pop()
+        if self._open:
+            self._open[-1].append(len(self._events))
+        self._events.append((phase, level, start, self._mark(), inner))
         return out
 
     def span(self, fn):
@@ -160,41 +192,53 @@ class PhaseRecorder:
         stop = self._mark()
         if self.cuda:
             stop.synchronize()
-        for phase, level, a, b in self._events:
-            s = self._elapsed(a, b)
+        whole = [self._elapsed(a, b) for _, _, a, b, _ in self._events]
+        for (phase, level, _, _, inner), s in zip(self._events, whole):
+            s -= sum(whole[i] for i in inner)
             self.seconds[phase] += s
             self.level_seconds[phase, level] = self.level_seconds.get((phase, level), 0.0) + s
         self._events.clear()
         return out, self._elapsed(start, stop)
 
+    def vcycle_seconds(self) -> dict:
+        """The sums over ``VCYCLE_KEYS``, an AMG coarse solve's phases
+        counted in ``cs`` (the CLI's columns)."""
+        out = {k: self.seconds[k] for k in VCYCLE_KEYS}
+        out["cs"] += sum(self.seconds[k] for k in AMG_PHASES)
+        return out
+
     def per_level(self, n: int = 1) -> dict:
         """The per-level sums over ``n`` (V-cycles), as
         ``format_per_level_table`` takes them: ``out[phase][l - 1]`` for the
         levels l = 1..L of each phase in ``PHASES``, and ``out["cs"]`` the
-        coarse solve's one entry."""
-        top = max((lv for _, lv in self.level_seconds), default=0)
+        coarse solve's one entry, an AMG's phases included."""
+        top = max((lv for ph, lv in self.level_seconds if ph in PHASES), default=0)
         out = {
             ph: [self.level_seconds.get((ph, lv), 0.0) / n for lv in range(1, top + 1)]
             for ph in PHASES if ph != "cs"
         }
-        out["cs"] = [self.level_seconds.get(("cs", 0), 0.0) / n]
+        amg = sum(s for (ph, _), s in self.level_seconds.items() if ph in AMG_PHASES)
+        out["cs"] = [(self.level_seconds.get(("cs", 0), 0.0) + amg) / n]
         return out
 
 
 def instrument(precond, hook):
-    """A copy of ``precond`` whose V-cycle phases run through ``hook``, or
-    None for a preconditioner without multigrid phases (AMG, AMGPETSc)."""
+    """A copy of ``precond`` whose V-cycle phases, and those of an AMG
+    coarse solve, run through ``hook``, or None for a preconditioner
+    without multigrid phases (AMG, AMGPETSc)."""
+    from ..solvers.coarse import with_amg_hook
     from ..solvers.multigrid import PreconditionMG
 
+    def hooked(mg):
+        return dataclasses.replace(mg, hook=hook, coarse_solve=with_amg_hook(mg.coarse_solve, hook))
+
     if isinstance(precond, PreconditionMG):
-        return dataclasses.replace(
-            precond, mg=dataclasses.replace(precond.mg, hook=hook), hook=hook
-        )
+        return dataclasses.replace(precond, mg=hooked(precond.mg), hook=hook)
     lsmg = getattr(precond, "lsmg", None)
     if lsmg is not None:  # api.PreconditionLS
-        return dataclasses.replace(precond, lsmg=dataclasses.replace(lsmg, hook=hook))
+        return dataclasses.replace(precond, lsmg=hooked(lsmg))
     if hasattr(precond, "copy_to_mg"):  # a bare local-smoothing hierarchy
-        return dataclasses.replace(precond, hook=hook)
+        return hooked(precond)
     return None
 
 
@@ -272,6 +316,10 @@ class SetupSpans:
 
     def records(self) -> list:
         return [SetupRecord(p[-1], p[:-1], s, n) for p, (s, n) in self._totals.items()]
+
+    def seconds(self, name: str) -> float:
+        """Seconds of the span ``name`` so far, wherever it ran."""
+        return sum(s for p, (s, _) in self._totals.items() if p[-1] == name)
 
     def clear(self) -> None:
         self._totals.clear()
@@ -351,3 +399,20 @@ class GraphCounts:
 
 #: the process's graph counts
 GRAPHS = GraphCounts()
+
+
+# ---------------------------------------------------------------------------
+# the shapes of the AMG hierarchies built
+# ---------------------------------------------------------------------------
+
+
+#: The shape of the latest AMG hierarchy built in the process (solvers/
+#: amg.py replaces it at each build; empty before any), for counters and
+#: least bytes: per level, finest first, its ``rows``, the stored entries
+#: of A (``nnz_A``) and of the prolongator from the next coarser level
+#: (``nnz_P``; 0 on the finest), and the ELL widths ``K_A``, ``K_P``,
+#: ``K_PT``; the ELL values' dtype; the dense coarsest level's rows, the
+#: nonzero entries of its matrix's lower triangle, diagonal included
+#: (``dense_nnz``: the fewest a factor holds), and its factor's dtype;
+#: ``n_cycles`` and ``n_smooth``.
+AMG_SHAPE: dict = {}

@@ -30,7 +30,7 @@ from dealii_multigrid_tpu_torch import api as tapi
 from dealii_multigrid_tpu_torch.mesh import generators as TG
 from dealii_multigrid_tpu_torch.mesh.coarsening import geometric_coarsening_sequence as tcoarsen
 from dealii_multigrid_tpu_torch.utils.params import RunParameters as TParams
-from dealii_multigrid_tpu_torch.utils.phases import KEYS, PHASES
+from dealii_multigrid_tpu_torch.utils.phases import PHASES, VCYCLE_KEYS
 
 CPU = torch.device("cpu")
 # relative gap of the Chebyshev centre and half-width, port against JAX
@@ -143,7 +143,7 @@ def test_2d_phase_profilers_return_nine_keys(mg_type):
     prm.profile_phases = True
     res, _, _ = tapi.run(prm, "cpu")
     phases = res.phases
-    assert set(phases) == set(KEYS) and len(phases) == 9
+    assert set(phases) == set(VCYCLE_KEYS) and len(phases) == 9
     for ph in ("pre", "residuum", "res", "cs", "pro", "post", "to_mg", "to_global"):
         assert phases[ph] > 0.0, ph
     assert (phases["edge_pro"] > 0.0) == (mg_type == "HMG-local")

@@ -18,6 +18,7 @@ from dealii_multigrid_tpu.mesh import dof as JD, generators as JG
 from dealii_multigrid_tpu.solvers import amg as jamg, coarse as jcoarse
 from dealii_multigrid_tpu_torch.mesh import dof as TD, generators as TG
 from dealii_multigrid_tpu_torch.solvers import amg as tamg, coarse as tcoarse
+from dealii_multigrid_tpu_torch.utils.phases import SETUP
 
 
 def lap2d(n: int) -> sp.csr_matrix:
@@ -139,13 +140,24 @@ def test_rmatvec_needs_the_transposed_table():
         A.rmatvec(torch.ones(16, dtype=torch.float64))
 
 
+def _amg_stage_counts() -> dict:
+    """How often each AMG set-up stage ran in the process (``SETUP``)."""
+    out = dict.fromkeys(("mgtpu.setup.amg_build", "mgtpu.setup.amg_upload", "mgtpu.setup.amg_factor"), 0)
+    for r in SETUP.records():
+        if r.name in out:
+            out[r.name] += r.count
+    return out
+
+
 def test_float32_levels_keep_their_dtype():
+    before = _amg_stage_counts()
     t = tamg.build_amg(lap2d(24), dtype=torch.float32, device="cpu", coarse_size=100)
     assert t.chol.dtype == torch.float32
     assert all(lv.A.vals.dtype == torch.float32 for lv in t.levels)
     y = t.vmult(torch.ones(24 * 24))
     assert y.dtype == torch.float32 and bool(torch.isfinite(y).all())
-    assert set(t.setup_seconds) == {"build", "upload", "factor"}
+    # each set-up stage ran once, as a set-up span
+    assert _amg_stage_counts() == {k: n + 1 for k, n in before.items()}
 
 
 def scaled_eigs(A: sp.csr_matrix) -> np.ndarray:

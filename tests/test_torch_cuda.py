@@ -536,3 +536,35 @@ def test_one_capture_and_one_replay_per_application(graphed):
     after = GRAPHS.summary()
     assert after["replays"] == before["replays"] + 4 and after["eager"] == before["eager"]
     assert after["captures"] == before["captures"]
+
+
+def test_pmg_with_an_amg_coarse_solve_is_captured_and_replays_bit_for_bit(cuda, monkeypatch):
+    """PMG at quadrant r=4 p=2 with the AMG on its Q1 level (1,008 DoFs; the
+    direct limit and the AMG's coarse size lowered to 100, so the AMG has
+    levels above its dense coarsest): the whole application, the AMG's ELL
+    gathers and triangular solves included, is one graph, and its replays
+    equal the eager application bit for bit."""
+    import functools
+
+    from dealii_multigrid_tpu_torch.solvers import amg, coarse
+    from dealii_multigrid_tpu_torch.solvers.multigrid import PreconditionMG
+    from dealii_multigrid_tpu_torch.utils.phases import GRAPHS
+
+    monkeypatch.setattr(coarse, "DIRECT_SOLVER_MAX_DOFS", 100)
+    monkeypatch.setattr(coarse, "build_amg", functools.partial(amg.build_amg, coarse_size=100))
+    prm = small_params("PMG", 4, 2, "double", "float")
+    prm.mg_data.coarse_solver.n_cycles = 2
+    res, _, levels = api.run(prm, cuda)
+    found = coarse.find_amg(res.mg.coarse_solve)
+    assert found is not None and len(found.levels) >= 2
+    _op, rhs, _ = api._outer_problem(prm, levels[-1], cuda)
+    GRAPHS.reset()
+    precond = PreconditionMG(res.mg, torch.float64)
+    assert precond.graph is not None and precond.graph.reason is None
+    assert GRAPHS.summary()["captures"] == 1
+    gen = torch.Generator().manual_seed(17)
+    for _ in range(3):
+        b = torch.randn(rhs.shape, generator=gen, dtype=torch.float64).to(cuda)
+        assert torch.equal(precond.vmult(b), res.mg.vmult(b.to(torch.float32)).to(torch.float64))
+    after = GRAPHS.summary()
+    assert after["replays"] == 3 and after["eager"] == {}

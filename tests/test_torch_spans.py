@@ -241,6 +241,13 @@ CASES = {
     "nested": ([], {}),
     "outside_every_span": ([("cudaLaunchKernel", 30.0, 30.01)], {}),
     "graph": ([("cudaGraphLaunch", 3.5, 3.51)], {"smoother.launches_per_it": 3}),
+    # an AMG coarse solve's phase, named by the port, inside cs@L0: its level
+    # is the AMG's own (6), which no reader takes for a multigrid level, so
+    # L2 stays the top and the launch counts once, as the coarse solve's
+    "amg_coarse_solve": ([("mgtpu.coarse.cs@L0", 6.5, 7.5),
+                          (phases.phase_span_name("amg_smooth", 6), 6.6, 7.0),
+                          ("cudaLaunchKernel", 6.7, 6.71)],
+                         {"vcycle.lower_levels_launches_per_it": 2}),
 }
 
 
