@@ -13,8 +13,18 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      float32 and at (512, 33) in float64, and the plain version at
      (512, 33) in both, and compute each shape's bound (phase x adds the
      bfloat16 instance);
-  4. solve, each path through api.run on cuda:0 with the launch count set
-     to 0 just before it and read just after:
+  3c. build the Chebyshev step kernel (ops/chebyshev_step.py) and hold it
+     to its plain version, the smoother's eager chain, bit for bit at the
+     finest level of hypercube r=6 p=4 (512 x 33^3 slots), in float32 and
+     float64: the recurrence step, the same with x and d one tensor, and
+     the first step of a smoothing from x.  Time each (CUDA events) beside
+     its bound by bytes (8 accesses of the level vector, 7 where x is d or
+     no d is read) and the eager chain's time;
+  4. solve, each path through api.run on cuda:0 with the launch counts set
+     to 0 just before it and read just after: the stencil's, and the
+     Chebyshev step kernel's, which every path checks at 5 (2 x degree - 1)
+     per float32 or float64 smoothed level per V-cycle (bfloat16 levels run
+     the eager chain) besides the warm-ups of its captures;
      a. a small double-precision HMG-global solve on the card against the
         same solve on the CPU (plain stencil path);
      b. the main path: HMG-global quadrant r=7 p=4 (17,551,967 DoFs, float
@@ -397,14 +407,86 @@ def time_shape(measured: dict, dtype, NP: int, S: int, xp, KS, MS, sc) -> float:
     return min(t_kern)
 
 
+#: slots of the finest level of hypercube r=6 p=4 (512 patches of 33^3)
+FINEST_SLOTS = 512 * 33**3
+
+
+def check_chebyshev_step(dev: torch.device, card: str) -> dict:
+    """Phase 3c: the Chebyshev step kernel against its plain version, bit
+    for bit, and its times; {dtype: {step: (ms, plain_ms, bound_ms,
+    max_abs_err)}}, the error the largest |kernel - plain| over x' and d'."""
+    from dealii_multigrid_tpu_torch.ops import chebyshev_step as cs
+    from dealii_multigrid_tpu_torch.solvers.chebyshev import ChebyshevSmoother
+
+    secs = cs.build()
+    print(f"Chebyshev step kernel build: {secs:.1f} s -> {cs.library.path}", flush=True)
+    if cs.library.build_log.strip():
+        print(cs.library.build_log.strip(), flush=True)
+    n = FINEST_SLOTS
+    out: dict = {}
+    for dtype in (torch.float32, torch.float64):
+        gen = torch.Generator(device=dev).manual_seed(18)
+        ar, x, d, b = (torch.randn(n, generator=gen, dtype=dtype, device=dev) for _ in range(4))
+        keep = (torch.rand(n, generator=gen, device=dev) < 0.8).to(dtype)
+        inv = torch.rand(n, generator=gen, dtype=dtype, device=dev) + 0.5
+        sm = ChebyshevSmoother.create(None, None, max_eigenvalue=2.6, degree=3)
+        theta, delta, sigma = sm._scalars(dtype)
+        rho_old = 1.0 / sigma
+        rho = 1.0 / (2.0 * sigma - rho_old)
+        c_d, c_r, theta = rho * rho_old, 2.0 * rho / delta, float(theta)
+        steps = {
+            "recurrence": (
+                lambda: cs.recurrence_step(ar, keep, x, d, b, inv, c_d, c_r),
+                lambda: cs.recurrence_reference(cs.blend(ar, keep, x), x, d, b, inv, c_d, c_r), 8),
+            "recurrence x=d": (
+                lambda: cs.recurrence_step(ar, keep, x, x, b, inv, c_d, c_r),
+                lambda: cs.recurrence_reference(cs.blend(ar, keep, x), x, x, b, inv, c_d, c_r), 7),
+            "first": (
+                lambda: cs.first_step(ar, keep, x, b, inv, theta),
+                lambda: cs.first_reference(cs.blend(ar, keep, x), x, b, inv, theta), 7),
+        }
+        size = torch.empty((), dtype=dtype).element_size()
+        out[dtype] = {}
+        for name, (kern, plain, accesses) in steps.items():
+            got, want = kern(), plain()
+            same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            check(same, f"Chebyshev step kernel ({name}, {DTYPE_TAG[dtype]}) differs from its "
+                  f"plain version: max_abs_err={err:.3e}")
+            del got, want
+            bound_ms = 1e3 * accesses * n * size / HBM_BYTES_PER_S
+            t_plain = [time_ms(plain, TIMED_LAUNCHES)]
+            t_kern = [time_ms(kern, TIMED_LAUNCHES), time_ms(kern, TIMED_LAUNCHES)]
+            t_plain.append(time_ms(plain, TIMED_LAUNCHES))
+            ms = min(t_kern)
+            print(f"Chebyshev step {name} {DTYPE_TAG[dtype]} N={n}: bit-equal to the eager chain "
+                  f"(max_abs_err={err:.3e}); "
+                  f"kernel {ms:.6f} ms {t_kern}, eager chain {min(t_plain):.6f} ms {t_plain}, "
+                  f"bound {1e3 * bound_ms:.2f} us ({accesses} accesses), roofline share "
+                  f"{bound_ms / ms:.4f}; card {card}", flush=True)
+            out[dtype][name] = (ms, min(t_plain), bound_ms, err)
+    return out
+
+
 class Entry(NamedTuple):
-    """One operator of a solve path, as the stencil launches it."""
+    """One operator of a solve path, as the stencil launches it, and the
+    Chebyshev step kernel launches of its smoother."""
 
     label: str
     op: object                  # HybridOperator
     per_iteration: int          # launches per CG iteration
     dtype: torch.dtype          # dtype of those launches
     setup: int                  # launches of the eigenvalue estimate
+    steps: int = 0              # step kernel launches per CG iteration
+
+
+def smoother_steps(dtype: torch.dtype, prm) -> int:
+    """Step kernel launches of one V-cycle visit of a smoothed level:
+    degree - 1 in the pre-smoother (its first step from zero applies no
+    operator), degree in the post-smoother; none on a bfloat16 level."""
+    if dtype not in (torch.float32, torch.float64):
+        return 0
+    return 2 * prm.mg_data.smoother.degree - 1
 
 
 def gc_entries(levels, prm) -> list:
@@ -418,7 +500,8 @@ def gc_entries(levels, prm) -> list:
     eig = prm.mg_data.smoother.eig_cg_n_iterations
     return [
         Entry(f"L{l} p={levels[l].degree}", levels[l].op,
-              2 * deg + (1 if l == len(levels) - 1 else 0), levels[l].op.dtype, eig)
+              2 * deg + (1 if l == len(levels) - 1 else 0), levels[l].op.dtype, eig,
+              smoother_steps(levels[l].op.dtype, prm))
         for l in range(len(levels) - 1, 0, -1)
     ]
 
@@ -435,9 +518,11 @@ def ls_entries(result, fine, outer_dtype, prm) -> list:
     p_ops = result.mg.operators if result.mg is not None else []
     ls_levels = result.ls_mg.levels
     out = [Entry(f"outer p={fine.degree}", fine.op, 1, outer_dtype, 0)]
-    out += [Entry(f"p={p_ops[l].n1 - 1}", p_ops[l], 2 * deg, p_ops[l].dtype, eig)
+    out += [Entry(f"p={p_ops[l].n1 - 1}", p_ops[l], 2 * deg, p_ops[l].dtype, eig,
+                  smoother_steps(p_ops[l].dtype, prm))
             for l in range(len(p_ops) - 1, 0, -1)]
-    out += [Entry(f"LS L{l}", ls_levels[l].op, 2 * deg + 2, ls_levels[l].op.dtype, eig)
+    out += [Entry(f"LS L{l}", ls_levels[l].op, 2 * deg + 2, ls_levels[l].op.dtype, eig,
+                  smoother_steps(ls_levels[l].op.dtype, prm))
             for l in range(len(ls_levels) - 1, 0, -1)]
     return out
 
@@ -454,49 +539,63 @@ def expected_launches(entries, iterations, setup: bool = True) -> int:
     return n + (1 if entries[0].op.NP > 0 else 0)
 
 
-#: ``utils.phases.GRAPHS.stencil`` when ``counted`` last set the counts to 0
+#: ``utils.phases.GRAPHS.stencil`` and ``.step`` when ``counted`` last set
+#: the counts to 0
 _REPLAYED_BEFORE: dict = {}
+#: Chebyshev step kernel launches per path, as ``paths`` holds the stencil's
+STEP_PATHS: dict = {}
 
 
-def counted(fn):
-    """Run fn with the launch counts set to 0 just before; (result,
-    launches).  The launches are the calls that launched at once and those
-    the preconditioners' CUDA graphs made: each replay launches what its
-    capture recorded (``launched_per_dtype``)."""
+def _kernels() -> dict:
+    """{kernel: (its module's launch counters, its graph replay counts)}."""
+    from dealii_multigrid_tpu_torch.ops import chebyshev_step as cs
     from dealii_multigrid_tpu_torch.ops import patch_stencil as ps
     from dealii_multigrid_tpu_torch.utils.phases import GRAPHS
 
+    return {"stencil": (ps, GRAPHS.stencil), "step": (cs, GRAPHS.step)}
+
+
+def counted(fn):
+    """Run fn with the launch counts of both kernels set to 0 just before;
+    (result, stencil launches).  The launches are the calls that launched
+    at once and those the preconditioners' CUDA graphs made: each replay
+    launches what its capture recorded (``launched_per_dtype``)."""
     torch.cuda.synchronize()
-    ps.launches.reset()
-    ps.captured.reset()
-    _REPLAYED_BEFORE.clear()
-    _REPLAYED_BEFORE.update(GRAPHS.stencil)
+    for kernel, (mod, replayed) in _kernels().items():
+        mod.launches.reset()
+        mod.captured.reset()
+        _REPLAYED_BEFORE[kernel] = dict(replayed)
     out = fn()
     torch.cuda.synchronize()
     return out, sum(launched_per_dtype().values())
 
 
-def launched_per_dtype() -> dict:
-    """Stencil launches per dtype since ``counted`` set the counts to 0: the
-    calls made outside a capture, and the captured calls x the replays."""
-    from dealii_multigrid_tpu_torch.ops import patch_stencil as ps
-    from dealii_multigrid_tpu_torch.utils.phases import GRAPHS
-
-    out = dict(ps.launches.per_dtype)
-    for k, n in GRAPHS.stencil.items():
-        if n != _REPLAYED_BEFORE.get(k, 0):
-            out[k] = out.get(k, 0) + n - _REPLAYED_BEFORE.get(k, 0)
+def launched_per_dtype(kernel: str = "stencil") -> dict:
+    """Launches of ``kernel`` ("stencil" or "step") per dtype since
+    ``counted`` set the counts to 0: the calls made outside a capture, and
+    the captured calls x the replays."""
+    mod, replayed = _kernels()[kernel]
+    before = _REPLAYED_BEFORE.get(kernel, {})
+    out = dict(mod.launches.per_dtype)
+    for k, n in replayed.items():
+        if n != before.get(k, 0):
+            out[k] = out.get(k, 0) + n - before.get(k, 0)
     return out
 
 
-def warmup_launches() -> dict:
-    """Stencil launches per dtype of the eager warm-ups since ``counted``
-    set the counts to 0: a preconditioner built on the card applies itself
-    once before it captures that application, so each capture adds what it
-    recorded."""
-    from dealii_multigrid_tpu_torch.ops import patch_stencil as ps
+def warmup_launches(kernel: str = "stencil") -> dict:
+    """Launches of ``kernel`` per dtype of the eager warm-ups since
+    ``counted`` set the counts to 0: a preconditioner built on the card
+    applies itself once before it captures that application, so each
+    capture adds what it recorded."""
+    return dict(_kernels()[kernel][0].captured.per_dtype)
 
-    return dict(ps.captured.per_dtype)
+
+def publish(paths: dict, key: str, launches: int) -> None:
+    """A path's stencil launches into ``paths``, and its step kernel
+    launches, as ``counted`` last counted them, into STEP_PATHS."""
+    paths[key] = launches
+    STEP_PATHS[key] = sum(launched_per_dtype("step").values())
 
 
 def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -514,22 +613,29 @@ def check_solve(name: str, result, entries, launches: int, n_it: int | None = No
     """The checks every full-size path makes, and its line of numbers.
     ``extra_launches``: launches the entries do not describe (a coarse CG on
     the coarsest level's operator), counted by the caller; the warm-ups of
-    the captures (``warmup_launches``) are added here."""
+    the captures (``warmup_launches``) are added here.  The Chebyshev step
+    kernel launches each entry's ``steps`` per V-cycle, one V-cycle per CG
+    iteration, besides its warm-ups."""
     expect = (expected_launches(entries, result.solve_iterations, setup) + extra_launches
               + sum(warmup_launches().values()))
     its = result.solve_iterations
+    steps = sum(launched_per_dtype("step").values())
+    expect_steps = (sum(its) * sum(e.steps for e in entries)
+                    + sum(warmup_launches("step").values()))
     print(f"{name}: operators (label, NP, S, band, launches per iteration) "
           f"{[(e.label, e.op.NP, e.op.S, e.op.band, e.per_iteration) for e in entries]}",
           flush=True)
     print(f"{name}: solve iterations {its}; loop residual {result.residual_norm:.4e}, "
           f"true residual {result.true_residual:.4e} (allowance {result.guard_threshold:.4e}); "
-          f"stencil launches {launches} (expected {expect})", flush=True)
+          f"stencil launches {launches} (expected {expect}); Chebyshev step kernel launches "
+          f"{steps} (expected {expect_steps})", flush=True)
     check(result.converged, f"{name} did not converge")
     check(len(set(its)) == 1, f"{name}: the solves took different iteration counts {its}")
     if n_it is not None:
         check(its[0] == n_it, f"{name}: expected {n_it} CG iterations, got {its}")
     check(result.true_residual <= result.guard_threshold, f"{name}: true-residual guard failed")
     check(launches > 0 and launches == expect, f"{name}: stencil launches {launches} != expected {expect}")
+    check(steps == expect_steps, f"{name}: step kernel launches {steps} != expected {expect_steps}")
     check("jax" not in sys.modules, "the port imported jax")
     x = result.x
     check(x.shape == (result.n_dofs,) and bool(torch.isfinite(x).all()),
@@ -545,7 +651,7 @@ def check_levels(name: str, entries, iterations: int, card: str, rng) -> None:
     from dealii_multigrid_tpu_torch.ops import patch_stencil as ps
 
     total = 0.0
-    for label, op, per_iteration, run_dtype, _ in entries:
+    for label, op, per_iteration, run_dtype, *_ in entries:
         if op.NP == 0:
             continue
         n = per_iteration * iterations
@@ -1257,7 +1363,7 @@ def phase_w(dev, card: str, paths: dict) -> None:
             plain, _, _ = api.run(prm, dev)
             os.environ["MGTPU_DEBUG"] = "1"
             (res, _problem, levels), launches = counted(lambda: api.run(prm, dev))
-            paths[key] = launches
+            publish(paths, key, launches)
             if prm.type == "HMG-global":
                 entries = gc_entries(levels, prm)
             else:
@@ -1493,7 +1599,7 @@ def phase_x(dev, card: str, measured: dict, paths: dict, done: set) -> None:
         per_dtype = launched_per_dtype()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
-        paths[key] = launches
+        publish(paths, key, launches)
         name = f"{mg_type} r=7 {number}/bfloat16"
         check(res.n_dofs == 17_551_967 and len(levels) == n_levels
               and all(lv.op.dtype == bf for lv in levels),
@@ -1542,7 +1648,7 @@ def phase_y(card: str, paths: dict) -> None:
             ))
         with open(sweep.out_path) as f:
             head = f.readline().rstrip("\n")
-    paths["runner_small_scaling_r4"] = launches
+    publish(paths, "runner_small_scaling_r4", launches)
     for _, cfg, _, text in sweep.verdicts:
         print(f"phase y: {cfg} {text}", flush=True)
     print(f"phase y: {len(sweep.ran)} ran in {sum(t for _, t in sweep.ran):.1f} s, "
@@ -1577,7 +1683,7 @@ def phase_y_partitioning(card: str, paths: dict) -> None:
                 "large_scaling_partitioning", ["8,1"], "cuda:0", os.path.join(tmp, "lsp.txt"),
                 max_ref=4, against=[record], degrees=[4], repetitions=1,
             ))
-    paths["runner_partitioning_r4_p4"] = launches
+    publish(paths, "runner_partitioning_r4_p4", launches)
     for _, cfg, _, text in sweep.verdicts + sweep.partitions:
         print(f"phase y: {cfg} {text}", flush=True)
     n_part = sum(v == "equal" for _, _, v, _ in sweep.partitions)
@@ -1748,6 +1854,9 @@ def main() -> int:
     stamp("3")
     # 3. kernel against the plain version
     measured = check_kernel(dev)
+    stamp("3c")
+    # 3c. the Chebyshev step kernel against the eager chain
+    steps = check_chebyshev_step(dev, card)
     rng = np.random.default_rng(1)
 
     stamp("4a")
@@ -1769,8 +1878,11 @@ def main() -> int:
     t0 = time.perf_counter()
     (result, _problem, levels), launches = counted(lambda: api.run(prm, dev))
     wall = time.perf_counter() - t0
-    paths = {"hmg_global_r7_float": launches,
-             "hmg_global_r7_float_f32": launched_per_dtype().get(torch.float32, 0)}
+    paths: dict = {}
+    publish(paths, "hmg_global_r7_float", launches)
+    paths["hmg_global_r7_float_f32"] = launched_per_dtype().get(torch.float32, 0)
+    check(set(launched_per_dtype("step")) == {torch.float32},
+          f"the main path's step kernel launches per dtype {launched_per_dtype('step')}")
     print(f"levels (NP, S, NS, use_cross): {[(lv.op.NP, lv.op.S, lv.op.NS, lv.op.use_cross) for lv in levels]}",
           flush=True)
     entries = gc_entries(levels, prm)
@@ -1788,7 +1900,7 @@ def main() -> int:
     check(shapes == list(MAIN_SHAPES), f"patch level shapes {shapes} != {MAIN_SHAPES}")
     check(all(lv.op.band == 4 for lv in levels), "an operator's band is not p = 4")
     total = 0.0
-    for label, op, per_iteration, _, _ in entries:
+    for label, op, per_iteration, *_ in entries:
         if op.NP == 0:
             continue
         n = per_iteration * result.n_iterations
@@ -1833,7 +1945,7 @@ def main() -> int:
     t0 = time.perf_counter()
     (res_m, _problem, levels), launches = counted(lambda: api.run(prm, dev))
     wall = time.perf_counter() - t0
-    paths["hpmg_r7_mixed"] = launches
+    publish(paths, "hpmg_r7_mixed", launches)
     check(len(levels) == 10 and [lv.degree for lv in levels[-3:]] == [1, 2, 4],
           f"HPMG r=7 p=4 plan: {[(lv.degree, lv.mesh.n_cells) for lv in levels]}")
     entries = gc_entries(levels, prm)
@@ -1856,7 +1968,7 @@ def main() -> int:
         fine.op, b_pair, PreconditionMG(res_m.mg, torch.float32), prm.mg_data,
         n_levels=len(levels), n_dofs=fine.dofh.n_dofs,
     ))
-    paths["hpmg_r7_df32"] = launches
+    publish(paths, "hpmg_r7_df32", launches)
     res_d.x = fine.to_global(res_d.x)
     check_solve("HPMG r=7 df32", res_d, entries, launches, setup=False)
     rel = norm_rel(res_d.x, res_m.x)
@@ -1875,7 +1987,7 @@ def main() -> int:
     # 4f. PMG quadrant r=5 p=4 mixed: dense coarse solve on the fine mesh at p=1
     prm = bench_params(5, 4, "mixed", 5, "PMG", "float")
     (res_p, _problem, levels), launches = counted(lambda: api.run(prm, dev))
-    paths["pmg_r5_mixed"] = launches
+    publish(paths, "pmg_r5_mixed", launches)
     entries = gc_entries(levels, prm)
     check_solve("PMG r=5 mixed", res_p, entries, launches)
     print(f"PMG quadrant r=5 p=4 mixed/float: n_dofs {res_p.n_dofs}, levels {len(levels)}, coarse "
@@ -1919,7 +2031,7 @@ def main() -> int:
         t0 = time.perf_counter()
         (res, _problem, levels), launches = counted(lambda: api.run(prm, dev))
         wall = time.perf_counter() - t0
-        paths[key] = launches
+        publish(paths, key, launches)
         paths[key + "_f64"] = launched_per_dtype().get(torch.float64, 0)
         ls_levels = res.ls_mg.levels
         print(f"{mg_type} r=7: LS levels (n_dofs, NP, S, NS, band) "
@@ -1987,7 +2099,7 @@ def main() -> int:
     t0 = time.perf_counter()
     (res_k, _problem, levels), launches = counted(lambda: api.run(prm, dev))
     wall = time.perf_counter() - t0
-    paths["pmg_r6_mixed_amg"] = launches
+    publish(paths, "pmg_r6_mixed_amg", launches)
     check([lv.degree for lv in levels] == [1, 2, 4] and levels[0].dofh.n_dofs == 38_402
           and res_k.n_dofs == 2_305_421,
           f"PMG r=6 p=4 plan: {[(lv.degree, lv.dofh.n_dofs) for lv in levels]}")
@@ -2026,7 +2138,7 @@ def main() -> int:
             outer_op, res_k.rhs_used, PreconditionMG(mg_l, torch.float64), prm_l.mg_data,
             n_levels=len(levels), n_dofs=fine.dofh.n_dofs,
         ))
-        paths[f"pmg_r6_mixed_{kind}"] = launches
+        publish(paths, f"pmg_r6_mixed_{kind}", launches)
         res_l.x = fine.to_global(res_l.x)
         extra = counter.calls if counter is not None else 0
         check_solve(f"PMG r=6 mixed {kind}", res_l, entries, launches, setup=False,
@@ -2052,7 +2164,7 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         (res, _problem, levels), launches = counted(lambda: api.run(prm, dev))
         key = f"hpmg_r6_trunc_{coarse}_{n_cycles}"
-        paths[key] = launches
+        publish(paths, key, launches)
         check(len(levels) == 3 and levels[0].dofh.n_dofs == 38_402 and res.n_dofs == 2_305_421,
               f"truncated HPMG r=6 plan: {[(lv.degree, lv.dofh.n_dofs) for lv in levels]}")
         entries = gc_entries(levels, prm)
@@ -2109,7 +2221,7 @@ def main() -> int:
         with contextlib.redirect_stdout(text):
             rc, launches = counted(lambda: cli.main(files))
     print(text.getvalue(), flush=True)
-    paths["cli_hmg_global_and_pmg_r7"] = launches
+    publish(paths, "cli_hmg_global_and_pmg_r7", launches)
     check(rc == 0, f"the CLI returned {rc}")
     rows = parse_last_table(text.getvalue())
     check(len(rows) == 2 and list(rows[0]) == CLI_COLUMNS,
@@ -2121,6 +2233,7 @@ def main() -> int:
         check_phase_row(row, f"{mg_type} r=7 p=4", card)
     check(int(rows[0]["n_iterations"]) == 3, f"CLI HMG-global r=7: iterations {rows[0]['n_iterations']}")
     check(launches > 0, "the CLI runs launched no stencil")
+    check(STEP_PATHS["cli_hmg_global_and_pmg_r7"] > 0, "the CLI runs launched no Chebyshev step kernel")
     torch.cuda.empty_cache()
 
     stamp("4p-4t")
@@ -2133,7 +2246,7 @@ def main() -> int:
     for key, phase in (("nsinker", phase_u), ("convection", phase_v)):
         stamp(key)
         _, launches = counted(lambda: phase(dev, card))
-        paths[key] = launches
+        publish(paths, key, launches)
         check(launches == 0, f"phase {key} launched the stencil {launches} times")
     stamp("w")
     phase_w(dev, card, paths)
@@ -2178,6 +2291,26 @@ def main() -> int:
         if dtype == torch.bfloat16:
             kernels[-1]["shapes"] = m["shapes"]
     kernels[0]["launches_per_path"] = paths
+    # the step kernel's launches: f32 in the main path b, f64 in w's HMG-global
+    # r=3 double (no full-size path smooths in float64)
+    step_path = {torch.float32: "hmg_global_r7_float", torch.float64: "debug_hmg_global_r3"}
+    for dtype, by_step in steps.items():
+        ms, plain_ms, bound_ms, _ = by_step["recurrence"]
+        kernels.append({
+            "name": f"chebyshev_step_{DTYPE_TAG[dtype]}",
+            "route": "cuda",
+            "source": "dealii_multigrid_tpu_torch/csrc/chebyshev_step.cu",
+            "replaces": "the smoother's eager chain, solvers/chebyshev.py (no TPU kernel)",
+            "launches": STEP_PATHS[step_path[dtype]],
+            "max_abs_err": max(err for *_, err in by_step.values()),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes",
+            "roofline_share": bound_ms / ms,
+            "library_ms": None,
+        })
+    kernels[-2]["launches_per_path"] = STEP_PATHS
     print(f"[chip_smoke] seconds per phase {json.dumps(phase_seconds())}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -12,7 +12,8 @@ tensors on a device and applies
   4. the assembly exchange (``exchange``): three sequential face-plane
      sweeps (interleaved with the patch<->singleton cross terms on levels
      with ``use_cross``), then the irregular group sums;
-  5. per-node C^T (``apply_ct``) and identity on constrained slots.
+  5. per-node C^T (``apply_ct``) and identity on constrained slots
+     (``vmult_split`` returns the result before this blend).
 
 The algebra is the JAX package's plain path (dealii_multigrid_tpu/ops/
 hybrid.py, every TPU layout variant off).  JAX's functional ``.at[]``
@@ -375,13 +376,19 @@ class HybridOperator:
             parts.append(rs.reshape(-1))
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
-    def vmult(self, x: torch.Tensor) -> torch.Tensor:
+    def vmult_split(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``vmult`` before its last step: (the result of ``apply_ct``, the
+        ``keep`` of the identity blend on constrained slots).  The Chebyshev
+        smoother fuses the blend into its step (ops/chebyshev_step.py)."""
         r = spanned(CELL_APPLY, self.cell_apply_raw, spanned(APPLY_C, self.apply_c, x))
         r = spanned(APPLY_CT_FACES, self.apply_ct_faces, r)
         r = spanned(EXCHANGE, self.exchange, r)
-        r = spanned(APPLY_CT, self.apply_ct, r)
+        return spanned(APPLY_CT, self.apply_ct, r), self.constrained_keep
+
+    def vmult(self, x: torch.Tensor) -> torch.Tensor:
+        r, keep = self.vmult_split(x)
         # identity on constrained DoFs (reference operator.h:152-183)
-        return r * self.constrained_keep + x * (1.0 - self.constrained_keep)
+        return r * keep + x * (1.0 - keep)
 
 
 def _last_writers(idx: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor]:

@@ -73,11 +73,17 @@ captured = LaunchCounter()
 
 class _Library:
     """A compiled kernel library (built once per process, on first use) of
-    ``source`` with nvcc ``flags``, into BUILD_DIR under ``source_tag``."""
+    ``source`` with nvcc ``flags``, into BUILD_DIR under ``source_tag``.
+    ``name`` prefixes its exported functions ``<name>_init(device)`` and
+    ``<name>_error_string(code)`` and its file; ``bind(lib, path)`` declares
+    its other entry points."""
 
-    def __init__(self, source: str = SOURCE, flags: tuple = NVCC_FLAGS) -> None:
+    def __init__(self, source: str = SOURCE, flags: tuple = NVCC_FLAGS,
+                 name: str = "patch_stencil", bind=None) -> None:
         self.source = source
         self.flags = tuple(flags)
+        self.name = name
+        self.bind = _bind_stencil if bind is None else bind
         self.lib: ctypes.CDLL | None = None
         self.path: str | None = None
         self.build_seconds = 0.0
@@ -96,8 +102,8 @@ class _Library:
             cand = os.path.join(home, "bin", "nvcc")
         if not os.path.exists(cand):
             raise RuntimeError(
-                "nvcc not found (PATH or $CUDA_HOME/bin): the patch-stencil "
-                "kernel is built from csrc/patch_stencil.cu at first use"
+                f"nvcc not found (PATH or $CUDA_HOME/bin): the {self.name} kernel is "
+                f"built from csrc/{os.path.basename(self.source)} at first use"
             )
         return cand
 
@@ -123,33 +129,45 @@ class _Library:
                 if os.path.exists(tmp):
                     os.remove(tmp)
         lib = ctypes.CDLL(path)
-        for name in _ENTRY.values():
-            fn = getattr(lib, name)
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        lib.patch_stencil_init.restype = ctypes.c_int
-        lib.patch_stencil_init.argtypes = [ctypes.c_int]
-        lib.patch_stencil_max_band.restype = ctypes.c_int
-        lib.patch_stencil_max_band.argtypes = []
-        if lib.patch_stencil_max_band() != max(BANDS):
-            raise RuntimeError(f"{path} is built for bands up to {lib.patch_stencil_max_band()}")
-        lib.patch_stencil_error_string.restype = ctypes.c_char_p
-        lib.patch_stencil_error_string.argtypes = [ctypes.c_int]
+        init = getattr(lib, f"{self.name}_init")
+        init.restype = ctypes.c_int
+        init.argtypes = [ctypes.c_int]
+        err = getattr(lib, f"{self.name}_error_string")
+        err.restype = ctypes.c_char_p
+        err.argtypes = [ctypes.c_int]
+        self.bind(lib, path)
         self.build_seconds = time.perf_counter() - t0
         self.path = path
         self.lib = lib
 
     def target(self) -> str:
         """The library's path: a changed source or flag builds anew."""
-        return os.path.join(BUILD_DIR, f"libpatch_stencil_{source_tag(self.source, self.flags)}.so")
+        return os.path.join(BUILD_DIR, f"lib{self.name}_{source_tag(self.source, self.flags)}.so")
 
     def for_device(self, device: int) -> ctypes.CDLL:
         """The library, initialised for ``device`` (once per card)."""
         lib = self.get()
         if device not in self.ready_devices:
-            _raise_on(lib, lib.patch_stencil_init(device), "initialisation")
+            self.check(getattr(lib, f"{self.name}_init")(device), "initialisation")
             self.ready_devices.add(device)
         return lib
+
+    def check(self, err: int, what: str) -> None:
+        """Raise naming ``what`` where a call returned a CUDA error code."""
+        if err != 0:
+            msg = getattr(self.lib, f"{self.name}_error_string")(err).decode()
+            raise RuntimeError(f"{self.name} kernel {what} failed: {msg} (code {err})")
+
+
+def _bind_stencil(lib: ctypes.CDLL, path: str) -> None:
+    for name in _ENTRY.values():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.patch_stencil_max_band.restype = ctypes.c_int
+    lib.patch_stencil_max_band.argtypes = []
+    if lib.patch_stencil_max_band() != max(BANDS):
+        raise RuntimeError(f"{path} is built for bands up to {lib.patch_stencil_max_band()}")
 
 
 def source_tag(source: str = SOURCE, flags: tuple = NVCC_FLAGS) -> str:
@@ -159,12 +177,6 @@ def source_tag(source: str = SOURCE, flags: tuple = NVCC_FLAGS) -> str:
 
 
 library = _Library()
-
-
-def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
-    if err != 0:
-        msg = lib.patch_stencil_error_string(err).decode()
-        raise RuntimeError(f"patch stencil kernel {what} failed: {msg} (code {err})")
 
 
 def matrix_band(*mats) -> int:
@@ -252,6 +264,6 @@ def patch_stencil(
         xp.data_ptr(), KS.data_ptr(), MS.data_ptr(), pscale.data_ptr(), out.data_ptr(),
         NP, S, band, device, torch.cuda.current_stream(xp.device).cuda_stream,
     )
-    _raise_on(lib, err, "launch")
+    library.check(err, "launch")
     (captured if torch.cuda.is_current_stream_capturing() else launches).add(xp.dtype)
     return out

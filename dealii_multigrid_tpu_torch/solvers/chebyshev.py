@@ -7,6 +7,14 @@ Jacobi-preconditioned CG steps estimate the largest eigenvalue of D^{-1} A
 caller applies the 1.2 safety factor, and the smoother works on
 [max_eig / smoothing_range, max_eig].  ``degree`` follows deal.II (degree 1
 is damped Jacobi).
+
+A step of the smoother is one operator application and the vector work of
+the recurrence.  Where the operator offers its result before the identity
+blend on constrained slots (``vmult_split``, the hybrid engine's levels)
+and the vectors are float32 or float64 CUDA tensors, that vector work runs
+as one kernel (ops/chebyshev_step.py), bit for bit the eager chain; every
+other case (CPU tensors, bfloat16 levels, the gather engine's and the
+Stokes operators) runs the eager chain (``takes_kernel``).
 """
 
 from __future__ import annotations
@@ -16,11 +24,19 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..ops import chebyshev_step as cs
 from ..utils import threefry
 from ..utils.phases import setup_span
 
 # the JAX package draws every start vector from jax.random.PRNGKey(42)
 START_SEED = 42
+
+
+def takes_kernel(op, v) -> bool:
+    """Whether the steps of a smoother on ``op`` with vectors like ``v`` run
+    as one kernel each: ``op`` offers ``vmult_split`` and ``v`` is a float32
+    or float64 CUDA tensor."""
+    return hasattr(op, "vmult_split") and v.device.type == "cuda" and v.dtype in cs.DTYPES
 
 
 def _extremes_from_cg_coefficients(alphas, betas) -> tuple[float, float]:
@@ -148,22 +164,34 @@ class ChebyshevSmoother:
         theta, delta = t[0], t[1]
         return theta, delta, theta / delta
 
+    def _step(self, x, b, d=None, c_d=None, c_r=None, theta=None):
+        """(x', d') of one step from ``x``: of the three-term recurrence
+        (``d``, ``c_d``, ``c_r``), or where ``d`` is None the first of a
+        smoothing, d' = (D^{-1} r) / theta.  One kernel where
+        ``takes_kernel`` holds, the eager chain otherwise."""
+        if takes_kernel(self.op, b):
+            ar, keep = self.op.vmult_split(x)
+            if d is None:
+                return cs.first_step(ar, keep, x, b, self.inv_diag, theta)
+            return cs.recurrence_step(ar, keep, x, d, b, self.inv_diag, c_d, c_r)
+        ax = self.op.vmult(x)
+        if d is None:
+            return cs.first_reference(ax, x, b, self.inv_diag, theta)
+        return cs.recurrence_reference(ax, x, d, b, self.inv_diag, c_d, c_r)
+
     def _recurrence(self, x, d, b, sigma, delta, n_steps):
         rho_old = 1.0 / sigma
         for _ in range(n_steps):
-            r = b - self.op.vmult(x)
             rho = 1.0 / (2.0 * sigma - rho_old)
-            d = (rho * rho_old) * d + (2.0 * rho / delta) * (self.inv_diag * r)
-            x = x + d
+            x, d = self._step(x, b, d, rho * rho_old, 2.0 * rho / delta)
             rho_old = rho
         return x
 
     def step(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Chebyshev iteration from initial guess x (three-term recurrence)."""
         theta, delta, sigma = self._scalars(b.dtype)
-        r = b - self.op.vmult(x)
-        d = (self.inv_diag * r) / float(theta)
-        return self._recurrence(x + d, d, b, sigma, delta, self.degree - 1)
+        x, d = self._step(x, b, theta=float(theta))
+        return self._recurrence(x, d, b, sigma, delta, self.degree - 1)
 
     def vmult(self, b: torch.Tensor) -> torch.Tensor:
         """Apply as a preconditioner (zero initial guess); saves the first

@@ -229,6 +229,9 @@ class LSHybridLevel:
     def vmult(self, u: torch.Tensor) -> torch.Tensor:
         return self.op.vmult(u)
 
+    def vmult_split(self, u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.op.vmult_split(u)
+
     def dot(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return self.op.dot(x, y)
 

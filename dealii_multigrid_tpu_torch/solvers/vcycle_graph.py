@@ -86,12 +86,13 @@ class VCycleGraph:
 
     def __init__(self, reason: str | None, outer_dtype: torch.dtype,
                  buf: torch.Tensor | None = None, graph: torch.cuda.CUDAGraph | None = None,
-                 stencil: dict | None = None):
+                 stencil: dict | None = None, step: dict | None = None):
         self.reason = reason
         self.outer_dtype = outer_dtype
         self.buf = buf              # the static input and output (level dtype)
         self.graph = graph
         self.stencil = stencil or {}  # patch-stencil calls the capture recorded, per dtype
+        self.step = step or {}      # Chebyshev step kernel calls it recorded, per dtype
 
     @classmethod
     def prepare(cls, reason: str | None, body: Callable, like: torch.Tensor | None,
@@ -104,7 +105,7 @@ class VCycleGraph:
             return None
         if reason is not None:
             return cls(reason, outer_dtype)
-        from ..ops import patch_stencil
+        from ..ops import chebyshev_step, patch_stencil
 
         t0 = time.perf_counter()
         device = like.device
@@ -114,17 +115,18 @@ class VCycleGraph:
         with torch.cuda.stream(side):
             body(buf)               # warm-up: every kernel loaded, every library initialised
         torch.cuda.current_stream(device).wait_stream(side)
-        before = dict(patch_stencil.captured.per_dtype)
+        counters = (patch_stencil.captured, chebyshev_step.captured)
+        before = [dict(c.per_dtype) for c in counters]
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=side):
             body(buf)
-        stencil = {
-            k: n - before.get(k, 0) for k, n in patch_stencil.captured.per_dtype.items()
-            if n != before.get(k, 0)
-        }
+        stencil, step = (
+            {k: n - was.get(k, 0) for k, n in c.per_dtype.items() if n != was.get(k, 0)}
+            for c, was in zip(counters, before)
+        )
         GRAPHS.captures += 1
         GRAPHS.capture_s += time.perf_counter() - t0
-        return cls(None, outer_dtype, buf, graph, stencil)
+        return cls(None, outer_dtype, buf, graph, stencil, step)
 
     def takes(self, b) -> bool:
         """Whether ``b``'s application replays; counts the eager one's reason."""
@@ -148,6 +150,7 @@ class VCycleGraph:
         with span(GRAPH_REPLAY):
             self.graph.replay()
         GRAPHS.replays += 1
-        for k, n in self.stencil.items():
-            GRAPHS.stencil[k] = GRAPHS.stencil.get(k, 0) + n
+        for recorded, total in ((self.stencil, GRAPHS.stencil), (self.step, GRAPHS.step)):
+            for k, n in recorded.items():
+                total[k] = total.get(k, 0) + n
         return buf.clone() if buf.dtype == self.outer_dtype else buf.to(self.outer_dtype)

@@ -380,7 +380,8 @@ class GraphCounts:
     "capturing", "input").  ``stencil`` holds the patch-stencil launches the
     replays made, per dtype (each replay adds the calls its capture
     recorded; ``ops.patch_stencil.launches`` counts only calls that launch
-    at once)."""
+    at once), and ``step`` those of the Chebyshev step kernel
+    (``ops.chebyshev_step``)."""
 
     def __init__(self):
         self.reset()
@@ -391,6 +392,7 @@ class GraphCounts:
         self.replays = 0
         self.eager: dict = {}
         self.stencil: dict = {}
+        self.step: dict = {}
 
     def summary(self) -> dict:
         return {"captures": self.captures, "replays": self.replays,

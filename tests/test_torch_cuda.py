@@ -568,3 +568,117 @@ def test_pmg_with_an_amg_coarse_solve_is_captured_and_replays_bit_for_bit(cuda, 
         assert torch.equal(precond.vmult(b), res.mg.vmult(b.to(torch.float32)).to(torch.float64))
     after = GRAPHS.summary()
     assert after["replays"] == 3 and after["eager"] == {}
+
+
+# --- one kernel per Chebyshev step (ops/chebyshev_step.py) ---
+
+#: slots of the finest level of hypercube r=6 p=4 (512 patches of 33^3)
+FINEST_SLOTS = 512 * 33**3
+
+
+def step_inputs(n, dtype, dev, offset=0):
+    """(ar, keep, x, d, b, inv_diag) of n slots; ``offset`` > 0 makes each
+    a view that starts ``offset`` values into its storage (not 16-byte
+    aligned)."""
+    gen = torch.Generator(device=dev).manual_seed(n + offset)
+
+    def vec(draw):
+        return draw(n + offset)[offset:]
+
+    ar, x, d, b = (vec(lambda m: torch.randn(m, generator=gen, dtype=dtype, device=dev))
+                   for _ in range(4))
+    keep = vec(lambda m: (torch.rand(m, generator=gen, device=dev) < 0.8).to(dtype))
+    inv = vec(lambda m: torch.rand(m, generator=gen, dtype=dtype, device=dev) + 0.5)
+    return ar, keep, x, d, b, inv
+
+
+def step_scalars(dtype):
+    """(c_d, c_r) of a recurrence step and theta, as the smoother computes them."""
+    from dealii_multigrid_tpu_torch.solvers.chebyshev import ChebyshevSmoother
+
+    sm = ChebyshevSmoother.create(None, None, max_eigenvalue=2.6, degree=3)
+    theta, delta, sigma = sm._scalars(dtype)
+    rho_old = 1.0 / sigma
+    rho = 1.0 / (2.0 * sigma - rho_old)
+    return rho * rho_old, 2.0 * rho / delta, float(theta)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,offset", [(FINEST_SLOTS, 0), (1001, 0), (1001, 1)])
+@pytest.mark.parametrize("step", ["recurrence", "recurrence_x_is_d", "first"])
+def test_chebyshev_step_kernel_is_the_eager_chain_bit_for_bit(cuda, step, n, offset, dtype):
+    from dealii_multigrid_tpu_torch.ops import chebyshev_step as cs
+
+    ar, keep, x, d, b, inv = step_inputs(n, dtype, cuda, offset)
+    c_d, c_r, theta = step_scalars(dtype)
+    ax = cs.blend(ar, keep, x)
+    before = cs.launches.count
+    if step == "first":
+        got = cs.first_step(ar, keep, x, b, inv, theta)
+        want = cs.first_reference(ax, x, b, inv, theta)
+    else:
+        d = x if step == "recurrence_x_is_d" else d
+        got = cs.recurrence_step(ar, keep, x, d, b, inv, c_d, c_r)
+        want = cs.recurrence_reference(ax, x, d, b, inv, c_d, c_r)
+    torch.cuda.synchronize()
+    assert cs.launches.count == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_smoother_with_the_step_kernel_is_the_eager_chain_on_a_hanging_level(cuda, monkeypatch,
+                                                                             dtype):
+    """HMG-global quadrant r=3 p=4 (structured hanging faces): the smoother's
+    vmult and step with the kernel equal its eager chain bit for bit."""
+    from dealii_multigrid_tpu_torch.mesh import generators
+    from dealii_multigrid_tpu_torch.ops import chebyshev_step as cs
+    from dealii_multigrid_tpu_torch.solvers import chebyshev
+
+    lv = api.build_level_hybrid(generators.create("quadrant", 3, 3), 4, cuda, dtype)
+    assert lv.op.sf_levels
+    sm = chebyshev.ChebyshevSmoother.create(lv.op, lv.inv_diag, max_eigenvalue=2.6, degree=3)
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    x, b = (torch.randn(lv.op.n_slots, generator=gen, dtype=dtype, device=cuda) for _ in range(2))
+    before = cs.launches.count
+    got = (sm.vmult(b), sm.step(x, b))
+    torch.cuda.synchronize()
+    assert cs.launches.count == before + 5
+    monkeypatch.setattr(chebyshev, "takes_kernel", lambda op, v: False)
+    want = (sm.vmult(b), sm.step(x, b))
+    assert cs.launches.count == before + 5
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def smoothers_of(precond):
+    return (precond.mg if hasattr(precond, "mg") else precond.lsmg).smoothers[1:]
+
+
+def test_replay_with_the_step_kernel_equals_the_eager_chain(graphed, monkeypatch):
+    """The captured application holds the step kernel; its replays equal
+    the eager application without the kernel bit for bit."""
+    from dealii_multigrid_tpu_torch.ops import chebyshev_step as cs
+    from dealii_multigrid_tpu_torch.solvers import chebyshev
+
+    precond, eager, _op, rhs, _graphs = graphed
+    assert cs.captured.count > 0
+    gen = torch.Generator().manual_seed(19)
+    bs = [torch.randn(rhs.shape, generator=gen, dtype=torch.float64).to(rhs.device)
+          for _ in range(2)]
+    got = [precond.vmult(b) for b in bs]
+    monkeypatch.setattr(chebyshev, "takes_kernel", lambda op, v: False)
+    before = cs.launches.count
+    for g, b in zip(got, bs):
+        assert torch.equal(g, eager(b))
+    assert cs.launches.count == before
+
+
+def test_five_step_launches_per_smoothed_level_per_eager_v_cycle(graphed):
+    from dealii_multigrid_tpu_torch.ops import chebyshev_step as cs
+
+    precond, eager, _op, rhs, _graphs = graphed
+    smoothers = smoothers_of(precond)
+    assert all(sm.degree == 3 for sm in smoothers)
+    before = cs.launches.count
+    eager(rhs)
+    torch.cuda.synchronize()
+    assert cs.launches.count - before == 5 * len(smoothers)

@@ -109,9 +109,9 @@ class DoublingGraph:
         self.replays += 1
 
 
-def captured(outer=torch.float64, level=torch.float32, n=5, stencil=None):
+def captured(outer=torch.float64, level=torch.float32, n=5, stencil=None, step=None):
     buf = torch.zeros(n, dtype=level)
-    return vg.VCycleGraph(None, outer, buf, DoublingGraph(buf), stencil)
+    return vg.VCycleGraph(None, outer, buf, DoublingGraph(buf), stencil, step)
 
 
 def test_the_stream_already_capturing_selects_eager(counts, monkeypatch):
@@ -134,7 +134,7 @@ def test_an_input_unlike_the_captured_one_selects_eager(counts, b):
 
 
 def test_a_replay_casts_in_and_returns_a_fresh_output(counts):
-    state = captured(stencil={torch.float32: 3})
+    state = captured(stencil={torch.float32: 3}, step={torch.float32: 5})
     b = torch.tensor([1.0, 2.0, 3.0, 1.0 + 2.0**-30, -0.5], dtype=torch.float64)
     assert state.takes(b)
     z1 = state.replay(b)
@@ -145,6 +145,7 @@ def test_a_replay_casts_in_and_returns_a_fresh_output(counts):
     state.replay(5 * b)
     assert torch.equal(z1, kept)                                   # FirstApply's kept output
     assert counts.replays == 3 and counts.stencil == {torch.float32: 9} and not counts.eager
+    assert counts.step == {torch.float32: 15}
 
 
 def test_equal_dtypes_return_a_clone_of_the_static_vector():
