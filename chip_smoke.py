@@ -180,13 +180,10 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      line.
 
 The expected launch counts come from the same per-level entries
-(``gc_entries``, ``ls_entries``) that step 5 reads.  A preconditioner built
-on the card applies itself once eagerly and then captures that application
-as a CUDA graph (solvers/vcycle_graph.py): a path's launches are the calls
-made outside a capture plus each graph's captured calls times its replays,
-and its expected count adds each capture's warm-up.  The result line
-carries the graphs' counts: captures, replays and the eager applications
-by reason.
+(``gc_entries``, ``ls_entries``) that step 5 reads.  ``ops.kernels``
+counts the launches that reached the card, each CUDA graph replay's
+included (solvers/vcycle_graph.py); a path's expected count adds each
+capture's eager warm-up.  The result line carries the graphs' counts.
 """
 
 from __future__ import annotations
@@ -204,6 +201,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from dealii_multigrid_tpu_torch.ops import kernels
 
 F32_RTOL, F32_ATOL_REL = 2e-5, 2e-4   # f32: atol = 2e-4 * max|ref|
 F64_REL = 1e-12                        # f64: max|err| / max|ref|
@@ -418,7 +417,7 @@ def check_chebyshev_step(dev: torch.device, card: str) -> dict:
     from dealii_multigrid_tpu_torch.ops import chebyshev_step as cs
     from dealii_multigrid_tpu_torch.solvers.chebyshev import ChebyshevSmoother
 
-    secs = cs.build()
+    secs = cs.library.build()
     print(f"Chebyshev step kernel build: {secs:.1f} s -> {cs.library.path}", flush=True)
     if cs.library.build_log.strip():
         print(cs.library.build_log.strip(), flush=True)
@@ -539,63 +538,36 @@ def expected_launches(entries, iterations, setup: bool = True) -> int:
     return n + (1 if entries[0].op.NP > 0 else 0)
 
 
-#: ``utils.phases.GRAPHS.stencil`` and ``.step`` when ``counted`` last set
-#: the counts to 0
-_REPLAYED_BEFORE: dict = {}
 #: Chebyshev step kernel launches per path, as ``paths`` holds the stencil's
 STEP_PATHS: dict = {}
 
 
-def _kernels() -> dict:
-    """{kernel: (its module's launch counters, its graph replay counts)}."""
-    from dealii_multigrid_tpu_torch.ops import chebyshev_step as cs
-    from dealii_multigrid_tpu_torch.ops import patch_stencil as ps
-    from dealii_multigrid_tpu_torch.utils.phases import GRAPHS
-
-    return {"stencil": (ps, GRAPHS.stencil), "step": (cs, GRAPHS.step)}
-
-
 def counted(fn):
-    """Run fn with the launch counts of both kernels set to 0 just before;
-    (result, stencil launches).  The launches are the calls that launched
-    at once and those the preconditioners' CUDA graphs made: each replay
-    launches what its capture recorded (``launched_per_dtype``)."""
+    """Run fn with every kernel's launch count set to 0 just before;
+    (result, stencil launches)."""
     torch.cuda.synchronize()
-    for kernel, (mod, replayed) in _kernels().items():
-        mod.launches.reset()
-        mod.captured.reset()
-        _REPLAYED_BEFORE[kernel] = dict(replayed)
+    kernels.reset()
     out = fn()
     torch.cuda.synchronize()
     return out, sum(launched_per_dtype().values())
 
 
-def launched_per_dtype(kernel: str = "stencil") -> dict:
-    """Launches of ``kernel`` ("stencil" or "step") per dtype since
-    ``counted`` set the counts to 0: the calls made outside a capture, and
-    the captured calls x the replays."""
-    mod, replayed = _kernels()[kernel]
-    before = _REPLAYED_BEFORE.get(kernel, {})
-    out = dict(mod.launches.per_dtype)
-    for k, n in replayed.items():
-        if n != before.get(k, 0):
-            out[k] = out.get(k, 0) + n - before.get(k, 0)
-    return out
+def launched_per_dtype(kernel: str = "patch_stencil") -> dict:
+    """Launches of ``kernel`` per dtype since ``counted`` set the counts to 0."""
+    return kernels.counts().get(kernel, {})
 
 
-def warmup_launches(kernel: str = "stencil") -> dict:
+def warmup_launches(kernel: str = "patch_stencil") -> dict:
     """Launches of ``kernel`` per dtype of the eager warm-ups since
-    ``counted`` set the counts to 0: a preconditioner built on the card
-    applies itself once before it captures that application, so each
-    capture adds what it recorded."""
-    return dict(_kernels()[kernel][0].captured.per_dtype)
+    ``counted`` set the counts to 0, as many as the captures recorded."""
+    return kernels.counts(kernels.RECORDED).get(kernel, {})
 
 
 def publish(paths: dict, key: str, launches: int) -> None:
     """A path's stencil launches into ``paths``, and its step kernel
     launches, as ``counted`` last counted them, into STEP_PATHS."""
     paths[key] = launches
-    STEP_PATHS[key] = sum(launched_per_dtype("step").values())
+    STEP_PATHS[key] = sum(launched_per_dtype("chebyshev_step").values())
 
 
 def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -619,9 +591,9 @@ def check_solve(name: str, result, entries, launches: int, n_it: int | None = No
     expect = (expected_launches(entries, result.solve_iterations, setup) + extra_launches
               + sum(warmup_launches().values()))
     its = result.solve_iterations
-    steps = sum(launched_per_dtype("step").values())
+    steps = sum(launched_per_dtype("chebyshev_step").values())
     expect_steps = (sum(its) * sum(e.steps for e in entries)
-                    + sum(warmup_launches("step").values()))
+                    + sum(warmup_launches("chebyshev_step").values()))
     print(f"{name}: operators (label, NP, S, band, launches per iteration) "
           f"{[(e.label, e.op.NP, e.op.S, e.op.band, e.per_iteration) for e in entries]}",
           flush=True)
@@ -704,11 +676,13 @@ class CountingOp:
 
 
 def amg_of(solver):
-    """The AMGPreconditioner inside a coarse solver; fails where there is none."""
-    from dealii_multigrid_tpu_torch.solvers.coarse import find_amg
+    """The AMG a coarse solver runs (itself, a coarse CG's, a slot wrapper's), or fails."""
+    from dealii_multigrid_tpu_torch.solvers.amg import AMGPreconditioner
+    from dealii_multigrid_tpu_torch.solvers.coarse import CGCoarseSolver, SlottedSolver
 
-    amg = find_amg(solver)
-    check(amg is not None, f"no AMG inside {type(solver).__name__}")
+    amg = solver.preconditioner if isinstance(solver, CGCoarseSolver) else solver
+    amg = amg.inner if isinstance(amg, SlottedSolver) else amg
+    check(isinstance(amg, AMGPreconditioner), f"no AMG inside {type(solver).__name__}")
     return amg
 
 
@@ -1844,7 +1818,7 @@ def main() -> int:
 
     stamp("2 (build)")
     # 2. build
-    secs = ps.build()
+    secs = ps.library.build()
     print(f"kernel build: {secs:.1f} s -> {ps.library.path}", flush=True)
     if ps.library.build_log.strip():
         print(ps.library.build_log.strip(), flush=True)
@@ -1881,8 +1855,8 @@ def main() -> int:
     paths: dict = {}
     publish(paths, "hmg_global_r7_float", launches)
     paths["hmg_global_r7_float_f32"] = launched_per_dtype().get(torch.float32, 0)
-    check(set(launched_per_dtype("step")) == {torch.float32},
-          f"the main path's step kernel launches per dtype {launched_per_dtype('step')}")
+    check(set(launched_per_dtype("chebyshev_step")) == {torch.float32},
+          f"the main path's step kernel launches per dtype {launched_per_dtype('chebyshev_step')}")
     print(f"levels (NP, S, NS, use_cross): {[(lv.op.NP, lv.op.S, lv.op.NS, lv.op.use_cross) for lv in levels]}",
           flush=True)
     entries = gc_entries(levels, prm)

@@ -21,7 +21,7 @@ its part of every level (parallel/sharding.py, ``dispatch_solve``).
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -37,7 +37,6 @@ from .ops.hybrid_format import (
     build_hybrid_format,
     cell_slot_table,
     repartition_format,
-    sanitizer_enabled,
     verify_format,
 )
 from .ops.hybrid_transfer import make_hybrid_transfer
@@ -52,16 +51,14 @@ from .solvers.chebyshev import (
 from .solvers.coarse import make_algebraic_solver, make_cg_coarse_solver, make_coarse_solver
 from .solvers import twofloat
 from .solvers.local_smoothing import (
-    LocalSmoothingMG,
-    LocalSmoothingMGHybrid,
+    PreconditionLS,
     build_local_smoothing_mg,
     build_local_smoothing_mg_hybrid,
 )
 from .solvers.multigrid import Multigrid, PreconditionMG
-from .solvers.vcycle_graph import VCycleGraph, static_reason
 from .utils.device import resolve_device
 from .utils.params import MultigridParameters, RunParameters
-from .utils.phases import PRECONDITION, PhaseRecorder, checked, instrument, setup_span, span
+from .utils.phases import PhaseRecorder, checked, instrument, sanitizer_enabled, setup_span
 
 _DTYPES = {
     "float": torch.float32,
@@ -580,44 +577,6 @@ def solve_with_global_coarsening_hybrid(
     # the sub-communicator analog: ranks of the coarsest level
     result.sub_comm_size = levels[0].fmt.n_shards
     return result, problem, levels
-
-
-@dataclass(frozen=True)
-class PreconditionLS:
-    """Precision and constrained-subspace wrapper around the LS V-cycle of
-    either engine; callable, so that it can serve as a coarse solve
-    (HPMG-local)."""
-
-    lsmg: LocalSmoothingMGHybrid | LocalSmoothingMG
-    keep: torch.Tensor          # 0 on the active mesh's constrained DoFs / slots
-    outer_dtype: torch.dtype
-    #: on a CUDA device, the application as one CUDA graph (as PreconditionMG's)
-    graph: VCycleGraph | None = field(init=False, default=None, compare=False, repr=False)
-
-    def __post_init__(self):
-        object.__setattr__(self, "graph", VCycleGraph.prepare(
-            self.graph_reason(), self._apply_in_place, self.keep, self.keep.dtype,
-            self.outer_dtype,
-        ))
-
-    def graph_reason(self) -> str | None:
-        """Why the application cannot be captured, or None."""
-        ls = self.lsmg
-        copies = [c for lev in ls.levels for c in (getattr(lev, "to_ext", None),
-                                                   getattr(lev, "from_ext", None))]
-        return static_reason((ls.hook,), (*ls.levels, *ls.transfers, *copies), ls.coarse_solve)
-
-    def _apply_in_place(self, b_level: torch.Tensor) -> None:
-        b_level.copy_(self.lsmg.vmult(b_level) * self.keep)
-
-    def vmult(self, b: torch.Tensor) -> torch.Tensor:
-        if self.graph is not None and self.graph.takes(b):
-            with span(PRECONDITION):
-                return self.graph.replay(b)
-        x = self.lsmg.vmult(b.to(self.keep.dtype)) * self.keep
-        return x.to(self.outer_dtype)
-
-    __call__ = vmult
 
 
 def solve_with_local_smoothing_hybrid(

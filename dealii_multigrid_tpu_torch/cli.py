@@ -28,31 +28,28 @@ from .mesh import generators
 from .models import poisson
 from .parallel import metrics
 from .parallel.partition import partition_hierarchy
-from .solvers.coarse import find_amg
 from .solvers.local_smoothing import level_mesh
 from .utils.device import describe_device, resolve_device
 from .utils.params import RunParameters
-from .utils.phases import format_per_level_table
+from .utils.phases import AMG_SHAPE, format_per_level_table
 from .utils.table import ConvergenceTable
 from .utils.vtu import write_vtu
 
 _MG_TYPES = ("PMG", "HMG-global", "HPMG", "HMG-local", "HPMG-local")
 
 
-def _print_amg_hierarchy(result) -> None:
-    """Rows, widest rows (K) and table bytes per AMG level, where the run's
-    coarse or only preconditioner is AMG."""
-    for holder in (result.amg, getattr(result.mg, "coarse_solve", None),
-                   getattr(result.ls_mg, "coarse_solve", None)):
-        amg = find_amg(holder)
-        if amg is None:
-            continue
-        print(f"\nAMG hierarchy ({amg.n_cycles} cycle(s) per application; dense coarsest "
-              f"factor {tuple(amg.chol.shape)}):")
-        print("level rows K_A K_P K_PT bytes omega")
-        for i, d in enumerate(amg.describe()):
-            print(f"{i:<5} {d['rows']} {d['K_A']} {d['K_P']} {d['K_PT']} {d['bytes']} "
-                  f"{d['omega']:.4g}")
+def _print_amg_hierarchy() -> None:
+    """Rows, widest rows (K) and table bytes per AMG level where the run
+    built an AMG (``AMG_SHAPE``, emptied before the run)."""
+    if not AMG_SHAPE:
+        return
+    n = AMG_SHAPE["dense_rows"]
+    print(f"\nAMG hierarchy ({AMG_SHAPE['n_cycles']} cycle(s) per application; dense coarsest "
+          f"factor {(n, n)}):")
+    print("level rows K_A K_P K_PT bytes omega")
+    for i, d in enumerate(AMG_SHAPE["levels"]):
+        print(f"{i:<5} {d['rows']} {d['K_A']} {d['K_P']} {d['K_PT']} {d['bytes']} "
+              f"{d['omega']:.4g}")
 
 
 def run_config(params: RunParameters, table: ConvergenceTable, device: torch.device) -> None:
@@ -80,6 +77,7 @@ def run_config(params: RunParameters, table: ConvergenceTable, device: torch.dev
     table.add_value("mg_number", params.mg_number_type)
     table.add_value("policy", params.effective_policy_name() or "Default")
 
+    AMG_SHAPE.clear()
     result, problem, levels = api.dispatch_solve(params, mesh, device)
 
     # hanging-node cell census (reference: multigrid_throughput.cc:2177-2190)
@@ -120,7 +118,7 @@ def run_config(params: RunParameters, table: ConvergenceTable, device: torch.dev
             print(format_per_level_table(result.phases_per_level))
 
     if params.verbose:
-        _print_amg_hierarchy(result)
+        _print_amg_hierarchy()
 
     if params.paraview:
         write_vtu("solution.vtu", problem.dofh, problem.full_solution(result.x))

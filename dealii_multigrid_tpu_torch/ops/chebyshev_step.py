@@ -11,42 +11,35 @@ returns the step's new iterate and update ``(x', d')``:
   x' = x + d'.
 
 Each launches the hand-written kernel in ``csrc/chebyshev_step.cu`` (built
-with nvcc for sm_90a at first use into the package's ``_build/`` directory,
-as ops/patch_stencil.py builds the stencil, and loaded with ctypes) on CUDA
-tensors, or raises.  Its plain version is the smoother's eager chain
-(``recurrence_reference``, ``first_reference``) after ``blend``, which every
-other case runs (solvers/chebyshev.py, ``takes_kernel``).  The kernel gives
-the eager chain's result on the card bit for bit: the same operations in the
-same order, each rounded on its own, and ``theta``'s reciprocal computed
-here as PyTorch's CUDA division by a CPU scalar computes it.  It allocates
-only x' and d'.
+and counted as ops/kernels.py sets out) on CUDA tensors, or raises.  Its
+plain version is the smoother's eager chain (``recurrence_reference``,
+``first_reference``) after ``blend``, which every other case runs
+(solvers/chebyshev.py, ``takes_kernel``).  The kernel gives the eager
+chain's result on the card bit for bit: the same operations in the same
+order, each rounded on its own, and ``theta``'s reciprocal computed here as
+PyTorch's CUDA division by a CPU scalar computes it.  It allocates only x'
+and d'.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
 
 import numpy as np
 import torch
 
-from .patch_stencil import NVCC_FLAGS, LaunchCounter, _Library
+from . import kernels
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "chebyshev_step.cu")
 #: the kernel's entry point per dtype
 _ENTRY = {torch.float32: "chebyshev_step_f32", torch.float64: "chebyshev_step_f64"}
 #: the dtypes the kernel takes
 DTYPES = tuple(_ENTRY)
 
-#: launches of the CUDA kernel (the plain CPU path does not count), made at
-#: the call; a call while the stream captures a CUDA graph counts in
-#: ``captured`` instead: it launches when the graph replays
-launches = LaunchCounter()
-captured = LaunchCounter()
+#: launches of the CUDA kernel that reached the card (ops/kernels.py)
+launches = kernels.counter("chebyshev_step")
 
 
-def _bind(lib: ctypes.CDLL, path: str) -> None:
+def bind(lib: ctypes.CDLL, path: str) -> None:
     for name in _ENTRY.values():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
@@ -56,13 +49,7 @@ def _bind(lib: ctypes.CDLL, path: str) -> None:
         )
 
 
-library = _Library(SOURCE, NVCC_FLAGS, "chebyshev_step", _bind)
-
-
-def build() -> float:
-    """Build (or load) the kernel library now; returns the seconds it took."""
-    library.get()
-    return library.build_seconds
+library = kernels.Library("chebyshev_step", bind)
 
 
 # ------------------------------------------------------------- plain versions
@@ -119,7 +106,7 @@ def _launch(first: bool, ar, keep, x, d, b, inv_diag, c_d: float, c_r: float,
         c_d, c_r, inv_theta, device, torch.cuda.current_stream(x.device).cuda_stream,
     )
     library.check(err, "launch")
-    (captured if torch.cuda.is_current_stream_capturing() else launches).add(x.dtype)
+    launches.add(x.dtype)
     return x_out, d_out
 
 

@@ -12,7 +12,6 @@ moves them onto a torch device.
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -708,16 +707,6 @@ def repartition_format(
         cross_faces=cross_faces,
         use_cross=fmt.use_cross,
     )
-
-
-def sanitizer_enabled() -> bool:
-    """Debug mode, the JAX package's ``MGTPU_DEBUG`` with its meaning: any
-    value but empty or "0" verifies every hybrid level's slot layout as it
-    is built (``verify_format``) and checks the output of every V-cycle
-    phase, and of every preconditioner without such phases (AMG, AMGPETSc,
-    the Stokes Schur solves), for non-finite values
-    (``utils.phases.finite_check``)."""
-    return os.environ.get("MGTPU_DEBUG", "") not in ("", "0")
 
 
 def verify_format(fmt: HybridFormat) -> None:

@@ -1,12 +1,12 @@
 """Patch stencil: the sum-factorized Q_p Laplacian on [NP, S^3] patch rows.
 
 ``patch_stencil`` is the one entry point.  On a CUDA tensor it launches the
-hand-written kernel in ``csrc/patch_stencil.cu`` (built with nvcc for
-sm_90a at first use into the package's ``_build/`` directory and loaded
-with ctypes) or raises; on a CPU tensor it runs ``patch_stencil_reference``,
-the plain PyTorch tensordot chain of the JAX package's
-``HybridOperator.cell_apply_raw`` patch branch.  The kernel replaces the TPU
-kernel ``dealii_multigrid_tpu/ops/pallas_stencil.py::patch_stencil_pallas``.
+hand-written kernel in ``csrc/patch_stencil.cu`` (built and counted as
+ops/kernels.py sets out) or raises; on a CPU tensor it runs
+``patch_stencil_reference``, the plain PyTorch tensordot chain of the JAX
+package's ``HybridOperator.cell_apply_raw`` patch branch.  The kernel
+replaces the TPU kernel
+``dealii_multigrid_tpu/ops/pallas_stencil.py::patch_stencil_pallas``.
 
 The kernel contracts KS and MS only inside their band: the caller passes
 ``band``, the half-width outside which both are zero (``matrix_band`` of the
@@ -18,19 +18,12 @@ card; the plain version ignores it.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 
 import numpy as np
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "patch_stencil.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
+from . import kernels
+
 #: the kernel's entry point per dtype (bfloat16: read and written in
 #: bfloat16, computed in float32)
 _ENTRY = {
@@ -40,126 +33,11 @@ _ENTRY = {
 }
 #: half-widths the kernel is built for (one template instance each)
 BANDS = tuple(range(1, 9))
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+#: launches of the CUDA kernel that reached the card (ops/kernels.py)
+launches = kernels.counter("patch_stencil")
 
 
-class LaunchCounter:
-    """Number of kernel launches, in all and per dtype (one per instance:
-    float32, float64, bfloat16); the wrapper adds one per launch."""
-
-    def __init__(self) -> None:
-        self.count = 0
-        self.per_dtype: dict = {}
-
-    def reset(self) -> None:
-        self.count = 0
-        self.per_dtype = {}
-
-    def add(self, dtype: torch.dtype) -> None:
-        self.count += 1
-        self.per_dtype[dtype] = self.per_dtype.get(dtype, 0) + 1
-
-
-#: launches of the CUDA kernel (the plain CPU path does not count), made
-#: at the call; a call while the stream captures a CUDA graph counts in
-#: ``captured`` instead: it launches when the graph replays
-#: (``utils.phases.GRAPHS.stencil``)
-launches = LaunchCounter()
-captured = LaunchCounter()
-
-
-class _Library:
-    """A compiled kernel library (built once per process, on first use) of
-    ``source`` with nvcc ``flags``, into BUILD_DIR under ``source_tag``.
-    ``name`` prefixes its exported functions ``<name>_init(device)`` and
-    ``<name>_error_string(code)`` and its file; ``bind(lib, path)`` declares
-    its other entry points."""
-
-    def __init__(self, source: str = SOURCE, flags: tuple = NVCC_FLAGS,
-                 name: str = "patch_stencil", bind=None) -> None:
-        self.source = source
-        self.flags = tuple(flags)
-        self.name = name
-        self.bind = _bind_stencil if bind is None else bind
-        self.lib: ctypes.CDLL | None = None
-        self.path: str | None = None
-        self.build_seconds = 0.0
-        self.build_log = ""
-        self.ready_devices: set[int] = set()
-
-    def get(self) -> ctypes.CDLL:
-        if self.lib is None:
-            self._load()
-        return self.lib
-
-    def _nvcc(self) -> str:
-        cand = shutil.which("nvcc")
-        if cand is None:
-            home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-            cand = os.path.join(home, "bin", "nvcc")
-        if not os.path.exists(cand):
-            raise RuntimeError(
-                f"nvcc not found (PATH or $CUDA_HOME/bin): the {self.name} kernel is "
-                f"built from csrc/{os.path.basename(self.source)} at first use"
-            )
-        return cand
-
-    def _load(self) -> None:
-        path = self.target()
-        t0 = time.perf_counter()
-        if not os.path.exists(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run(
-                    [self._nvcc(), *self.flags, "-o", tmp, self.source],
-                    capture_output=True, text=True, timeout=600,
-                )
-                self.build_log = proc.stdout + proc.stderr
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({proc.returncode}) on {self.source}:\n{self.build_log}"
-                    )
-                os.replace(tmp, path)
-            finally:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-        lib = ctypes.CDLL(path)
-        init = getattr(lib, f"{self.name}_init")
-        init.restype = ctypes.c_int
-        init.argtypes = [ctypes.c_int]
-        err = getattr(lib, f"{self.name}_error_string")
-        err.restype = ctypes.c_char_p
-        err.argtypes = [ctypes.c_int]
-        self.bind(lib, path)
-        self.build_seconds = time.perf_counter() - t0
-        self.path = path
-        self.lib = lib
-
-    def target(self) -> str:
-        """The library's path: a changed source or flag builds anew."""
-        return os.path.join(BUILD_DIR, f"lib{self.name}_{source_tag(self.source, self.flags)}.so")
-
-    def for_device(self, device: int) -> ctypes.CDLL:
-        """The library, initialised for ``device`` (once per card)."""
-        lib = self.get()
-        if device not in self.ready_devices:
-            self.check(getattr(lib, f"{self.name}_init")(device), "initialisation")
-            self.ready_devices.add(device)
-        return lib
-
-    def check(self, err: int, what: str) -> None:
-        """Raise naming ``what`` where a call returned a CUDA error code."""
-        if err != 0:
-            msg = getattr(self.lib, f"{self.name}_error_string")(err).decode()
-            raise RuntimeError(f"{self.name} kernel {what} failed: {msg} (code {err})")
-
-
-def _bind_stencil(lib: ctypes.CDLL, path: str) -> None:
+def bind(lib: ctypes.CDLL, path: str) -> None:
     for name in _ENTRY.values():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
@@ -170,13 +48,8 @@ def _bind_stencil(lib: ctypes.CDLL, path: str) -> None:
         raise RuntimeError(f"{path} is built for bands up to {lib.patch_stencil_max_band()}")
 
 
-def source_tag(source: str = SOURCE, flags: tuple = NVCC_FLAGS) -> str:
-    """12 hex digits of the SHA-1 of the source and the nvcc flags."""
-    with open(source, "rb") as f:
-        return hashlib.sha1(f.read() + " ".join(flags).encode()).hexdigest()[:12]
-
-
-library = _Library()
+library = kernels.Library("patch_stencil", bind)
+SOURCE = library.source
 
 
 def matrix_band(*mats) -> int:
@@ -187,12 +60,6 @@ def matrix_band(*mats) -> int:
         if i.size:
             band = max(band, int(np.abs(i - j).max()))
     return band
-
-
-def build() -> float:
-    """Build (or load) the kernel library now; returns the seconds it took."""
-    library.get()
-    return library.build_seconds
 
 
 def patch_stencil_reference(
@@ -265,5 +132,5 @@ def patch_stencil(
         NP, S, band, device, torch.cuda.current_stream(xp.device).cuda_stream,
     )
     library.check(err, "launch")
-    (captured if torch.cuda.is_current_stream_capturing() else launches).add(xp.dtype)
+    launches.add(xp.dtype)
     return out

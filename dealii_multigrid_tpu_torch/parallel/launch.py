@@ -91,9 +91,9 @@ def _rank_main(rank, world, store, device, target, payload, q, collective_timeou
 def _prebuild(device: str) -> None:
     """Build the stencil kernel in the parent (once, before any spawn)."""
     if device != "cpu" and torch.cuda.is_available():
-        from ..ops.patch_stencil import build
+        from ..ops.patch_stencil import library
 
-        build()
+        library.build()
 
 
 def launch(target: str, payload, world: int, device: str = "cuda",

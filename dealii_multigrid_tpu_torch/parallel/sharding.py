@@ -31,6 +31,8 @@ import numpy as np
 import torch
 
 from ..ops.fixed_order import FixedOrderSum
+from ..solvers.vcycle_graph import comm_reason, reason_of
+from ..utils.phases import KEYS, hook_field
 from .comm import Comm, ExtIndex, SlotPart, current_comm
 
 
@@ -127,12 +129,15 @@ class GatheredSolve:
     op: object
 
     def __call__(self, b: torch.Tensor) -> torch.Tensor:
-        x = self.inner(self.op.gather(b)) if callable(self.inner) else self.inner.vmult(
-            self.op.gather(b)
-        )
-        return self.op.own(x)
+        return self.op.own(self.inner.vmult(self.op.gather(b)))
 
     vmult = __call__
+
+    def graph_reason(self) -> str | None:
+        return reason_of(self.inner) or comm_reason(self.op)
+
+    def with_hook(self, hook, phases: tuple = KEYS) -> "GatheredSolve":
+        return hook_field(self, "inner", hook, phases)
 
 
 def rank_copies(h, active_fmt, device) -> dict:

@@ -20,6 +20,7 @@ two solves of one run).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -28,7 +29,7 @@ import scipy.sparse as sp
 import torch
 
 from ..utils.device import resolve_device
-from ..utils.phases import AMG_SHAPE, SETUP, untimed
+from ..utils.phases import AMG_PHASES, AMG_SHAPE, KEYS, SETUP, untimed
 
 
 @dataclass(frozen=True)
@@ -233,6 +234,12 @@ class AMGPreconditioner:
 
     __call__ = vmult
 
+    def graph_reason(self) -> str | None:
+        return None if self.hook is untimed else "hook"
+
+    def with_hook(self, hook: Callable, phases: tuple = KEYS) -> "AMGPreconditioner":
+        return self if set(AMG_PHASES).isdisjoint(phases) else dataclasses.replace(self, hook=hook)
+
     def describe(self) -> list[dict]:
         """Per level, finest first: rows, the widest row of A, of P and of
         P^T (K), and the bytes of the level's device tables."""
@@ -410,7 +417,7 @@ def build_amg(
     AMG_SHAPE.update({
         "levels": [
             {"rows": Al.shape[0], "nnz_A": int(Al.nnz), "nnz_P": 0 if Pl is None else int(Pl.nnz),
-             **{k: d[k] for k in ("K_A", "K_P", "K_PT")}}
+             **{k: d[k] for k in ("K_A", "K_P", "K_PT", "bytes", "omega")}}
             for (Al, Pl, _, _), d in zip(host_levels, amg.describe())
         ],
         "value_dtype": str(dtype).replace("torch.", ""),

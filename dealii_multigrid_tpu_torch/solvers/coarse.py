@@ -15,7 +15,6 @@ smoothed-aggregation AMG of solvers/amg.py above that.
 
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -25,10 +24,11 @@ import torch
 from ..mesh.dof import Constraints, DoFHandler
 from ..ops import element
 from ..ops.operator import split_boundary_constraints
-from .amg import AMGPreconditioner, build_amg, build_amg_boomer, factor_dtype
+from .amg import build_amg, build_amg_boomer, factor_dtype
 from .cg import cg_solve
 from .chebyshev import ChebyshevSmoother, estimate_eigenvalue_range
-from ..utils.phases import setup_span
+from ..utils.phases import KEYS, hook_field, setup_span
+from .vcycle_graph import comm_reason, reason_of
 
 # problems up to this size use the exact dense Cholesky; larger ones get the
 # smoothed-aggregation AMG (solvers/amg.py)
@@ -100,6 +100,9 @@ class DirectCoarseSolver:
 
     vmult = __call__
 
+    def graph_reason(self) -> None:
+        return None                 # two triangular solves on the device; no phases to hook
+
 
 @dataclass(frozen=True)
 class SlottedSolver:
@@ -113,6 +116,12 @@ class SlottedSolver:
         return _from_global(self.inner.vmult(b[self.to_idx]), self.from_idx)
 
     __call__ = vmult
+
+    def graph_reason(self) -> str | None:
+        return reason_of(self.inner)
+
+    def with_hook(self, hook, phases: tuple = KEYS) -> "SlottedSolver":
+        return hook_field(self, "inner", hook, phases)
 
 
 @dataclass(frozen=True)
@@ -141,28 +150,13 @@ class CGCoarseSolver:
 
     vmult = __call__
 
+    def graph_reason(self) -> str:
+        """"coarse" (it reads its residual to the host) unless it is hooked or sharded."""
+        pre = None if self.preconditioner is None else reason_of(self.preconditioner)
+        return "hook" if pre == "hook" else comm_reason(self.op) or "coarse"
 
-def find_amg(solver):
-    """The AMGPreconditioner inside a coarse solver (itself, in a slot
-    wrapper, or as the preconditioner of a coarse CG), else None."""
-    inner = getattr(solver, "preconditioner", None) or solver
-    inner = getattr(inner, "inner", inner)
-    return inner if isinstance(inner, AMGPreconditioner) else None
-
-
-def with_amg_hook(solver, hook):
-    """A copy of the coarse solver ``solver`` whose AMGPreconditioner (where
-    ``find_amg`` finds one) runs its phases through ``hook``; ``solver``
-    itself where it holds none."""
-    if isinstance(solver, AMGPreconditioner):
-        return dataclasses.replace(solver, hook=hook)
-    for name in ("preconditioner", "inner"):
-        part = getattr(solver, name, None)
-        if part is not None and dataclasses.is_dataclass(solver):
-            new = with_amg_hook(part, hook)
-            if new is not part:
-                return dataclasses.replace(solver, **{name: new})
-    return solver
+    def with_hook(self, hook, phases: tuple = KEYS) -> "CGCoarseSolver":
+        return hook_field(self, "preconditioner", hook, phases)
 
 
 def make_cg_coarse_solver(

@@ -30,7 +30,8 @@ and cache are TPU workarounds and are not carried.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
@@ -45,15 +46,15 @@ from ..ops.hybrid_format import (
     HybridFormat,
     build_hybrid_format,
     repartition_format,
-    sanitizer_enabled,
     slots_of,
     verify_format,
 )
 from ..ops.hybrid_transfer import make_hybrid_transfer
 from .chebyshev import ChebyshevSmoother, estimate_eigenvalue_ranges
 from .coarse import make_algebraic_solver
-from ..utils.phases import PRECONDITION, setup_span, span, spanned, untimed
+from ..utils.phases import PRECONDITION, sanitizer_enabled, setup_span, span, spanned, untimed
 from .multigrid import prolong_add, residual
+from .vcycle_graph import GraphedApplication, VCycle, VCycleGraph
 
 # ---------------------------------------------------------------------------
 # host half
@@ -266,10 +267,14 @@ def _restrict_add(transfer, d_c: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return d_c + transfer.restrict(t)
 
 
-class _LSCycle:
+class _LSCycle(VCycle):
     """The local-smoothing V-cycle both engines share; a subclass gives the
     levels, smoothers, transfers, coarse solve and phase hook, and the two
     copies between the active mesh's vector and the levels'."""
+
+    def parts(self) -> tuple:
+        """The hybrid levels' operators (a gather-engine level is its own) and the transfers."""
+        return (*(getattr(lev, "op", lev) for lev in self.levels), *self.transfers)
 
     def vmult(self, r_active: torch.Tensor) -> torch.Tensor:
         ph, top = self.hook, len(self.levels) - 1
@@ -452,6 +457,32 @@ class LocalSmoothingMG(_LSCycle):
         return out
 
 
+@dataclass(frozen=True)
+class PreconditionLS(GraphedApplication):
+    """Precision and constrained-subspace wrapper around the LS V-cycle of
+    either engine (HPMG-local's coarse solve too; solvers/vcycle_graph.py)."""
+
+    lsmg: LocalSmoothingMGHybrid | LocalSmoothingMG
+    keep: torch.Tensor          # 0 on the active mesh's constrained DoFs / slots
+    outer_dtype: torch.dtype
+    graph: VCycleGraph | None = field(init=False, default=None, compare=False, repr=False)
+
+    def __post_init__(self):
+        self._prepare(self.keep, self.keep.dtype)
+
+    def graph_reason(self) -> str | None:
+        return self.lsmg.graph_reason()
+
+    def _hooked(self, hook: Callable) -> "PreconditionLS":
+        return dataclasses.replace(self, lsmg=self.lsmg.with_hook(hook))
+
+    def _apply(self, b_level: torch.Tensor) -> torch.Tensor:
+        return self.lsmg.vmult(b_level) * self.keep
+
+    def _eager(self, b: torch.Tensor) -> torch.Tensor:
+        return self._apply(b.to(self.keep.dtype)).to(self.outer_dtype)
+
+
 def _octant_matrix(dim: int, degree: int, octant: int) -> np.ndarray:
     E = tensor.h_embedding_1d(degree)
     out = np.array([[1.0]])
@@ -475,7 +506,7 @@ def build_local_smoothing_mg(
     eigenvalue start vectors are the JAX package's, ``jax.random.normal``
     from seed 42 on every level (``utils.threefry``).  Masking the output's
     constrained rows (Dirichlet and hanging slaves of the active mesh) is
-    the caller's job (api.PreconditionLS)."""
+    the caller's job (``PreconditionLS``)."""
     active = active_dofh.mesh
     p, dim = active_dofh.degree, active.dim
     elem = element.laplace_element_matrix(dim, p)

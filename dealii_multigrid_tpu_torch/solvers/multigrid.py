@@ -7,20 +7,16 @@ the precision boundary between the outer Krylov solve and the MG levels.
 
 Every phase runs through the object's ``hook`` (``hook(phase, level, fn,
 *args)`` returns ``fn(*args)``; level 0 is the coarsest), the analog of the
-reference's Multigrid signals (multigrid_throughput.cc:1152-1234).  The
-default hook, ``untimed`` (utils/phases.py), only calls, inside a profiler
-range named after the phase and its level while a profiler records; the
-profiled solve of ``ProfilePhases`` runs a copy whose hook times each phase
-at each level (``utils.phases.PhaseRecorder``), and debug mode
-(``MGTPU_DEBUG``) a copy whose hook is ``finite_check``, so the timed solves
-carry no event, no check and no branch.  A whole application of
-``PreconditionMG`` is the range ``mgtpu.vcycle.precondition``.  Built on a
-CUDA device, ``PreconditionMG`` captures its application as one CUDA graph
-and replays it (solvers/vcycle_graph.py).
+reference's Multigrid signals (multigrid_throughput.cc:1152-1234): by
+default ``untimed``, in the profiled solve and in debug mode a copy's
+recorder or check (utils/phases.py), so the timed solves carry no event, no
+check and no branch.  Built on a CUDA device, ``PreconditionMG`` replays
+its application as one CUDA graph (solvers/vcycle_graph.py).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -28,7 +24,7 @@ import torch
 
 # finite_check, debug mode's hook, is named here beside the default one
 from ..utils.phases import PRECONDITION, finite_check, span, untimed  # noqa: F401
-from .vcycle_graph import VCycleGraph, static_reason
+from .vcycle_graph import GraphedApplication, VCycle, VCycleGraph
 
 
 def residual(op, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -40,7 +36,7 @@ def prolong_add(transfer, x: torch.Tensor, xc: torch.Tensor) -> torch.Tensor:
 
 
 @dataclass(frozen=True)
-class Multigrid:
+class Multigrid(VCycle):
     """V(1,1)-cycle over a level hierarchy (coarsest = index 0)."""
 
     operators: tuple
@@ -52,6 +48,9 @@ class Multigrid:
     @property
     def n_levels(self) -> int:
         return len(self.operators)
+
+    def parts(self) -> tuple:
+        return (*self.operators, *self.transfers)
 
     def _v_cycle(self, level: int, b: torch.Tensor) -> torch.Tensor:
         ph = self.hook
@@ -72,15 +71,12 @@ class Multigrid:
 
 
 @dataclass(frozen=True)
-class PreconditionMG:
+class PreconditionMG(GraphedApplication):
     """Precision boundary between the outer Krylov solve and the MG levels
     (reference: float MG levels under a double outer CG,
     multigrid_throughput.cc:528-550); the two casts are the phases
     ``to_mg`` and ``to_global``.  On a CUDA device the whole application
-    is one CUDA graph, captured here and replayed where it is sound
-    (solvers/vcycle_graph.py); ``graph`` is no init field, so a copy made
-    with ``dataclasses.replace`` (``utils.phases.instrument``) decides
-    anew."""
+    is one CUDA graph (solvers/vcycle_graph.py)."""
 
     mg: Multigrid
     outer_dtype: torch.dtype
@@ -90,24 +86,20 @@ class PreconditionMG:
     def __post_init__(self):
         mg = self.mg
         fine = getattr(mg.smoothers[-1], "inv_diag", None) if mg.n_levels > 1 else None
-        object.__setattr__(self, "graph", VCycleGraph.prepare(
-            self.graph_reason(), self._apply_in_place, fine, mg.operators[-1].dtype,
-            self.outer_dtype,
-        ))
+        self._prepare(fine, mg.operators[-1].dtype)
 
     def graph_reason(self) -> str | None:
-        """Why the application cannot be captured, or None."""
-        mg = self.mg
-        return static_reason((self.hook, mg.hook), (*mg.operators, *mg.transfers), mg.coarse_solve)
+        return "hook" if self.hook is not untimed else self.mg.graph_reason()
 
-    def _apply_in_place(self, b_level: torch.Tensor) -> None:
-        b_level.copy_(self.mg.vmult(b_level))
+    def _hooked(self, hook: Callable) -> "PreconditionMG":
+        return dataclasses.replace(self, mg=self.mg.with_hook(hook), hook=hook)
 
-    def vmult(self, b: torch.Tensor) -> torch.Tensor:
+    def _apply(self, b_level: torch.Tensor) -> torch.Tensor:
+        return self.mg.vmult(b_level)
+
+    def _eager(self, b: torch.Tensor) -> torch.Tensor:
         ph, top = self.hook, self.mg.n_levels - 1
         with span(PRECONDITION):
-            if self.graph is not None and self.graph.takes(b):
-                return self.graph.replay(b)
             b_level = ph("to_mg", top, b.to, self.mg.operators[-1].dtype)
             x = self.mg.vmult(b_level)
             return ph("to_global", top, x.to, self.outer_dtype)

@@ -7,7 +7,7 @@ on one card.
 Each directory is a checkout of the port (for example the parent commit,
 ``git archive`` unpacked into a git-ignored directory); its
 ``dealii_multigrid_tpu_torch/csrc/patch_stencil.cu`` is built with nvcc and
-the ``NVCC_FLAGS`` of its own ``ops/patch_stencil.py``, beside this
+the ``NVCC_FLAGS`` of its own ``ops/kernels.py``, beside this
 checkout's, all builds started together.  At each shape of
 ``SHAPES`` (the main path's six levels and the p=1 levels of halved patch
 size), in bfloat16, float32 and float64, on one set of inputs:
@@ -41,8 +41,8 @@ import sys
 import numpy as np
 import torch
 
+from dealii_multigrid_tpu_torch.ops import kernels, tensor
 from dealii_multigrid_tpu_torch.ops import patch_stencil as ps
-from dealii_multigrid_tpu_torch.ops import tensor
 from dealii_multigrid_tpu_torch.ops.hybrid_format import _assembled_1d
 
 #: (NP, S, band): quadrant r=7 p=4's patch levels L7..L2, then the p=1
@@ -55,8 +55,11 @@ ENTRY = {"bf16": "patch_stencil_bf16", "f32": "patch_stencil_f32", "f64": "patch
 
 
 def checkout_flags(root: str) -> tuple:
-    """``NVCC_FLAGS`` of a checkout's ``ops/patch_stencil.py``."""
-    path = os.path.join(root, "dealii_multigrid_tpu_torch", "ops", "patch_stencil.py")
+    """``NVCC_FLAGS`` of a checkout: its ``ops/kernels.py``, or in an older
+    checkout without one its ``ops/patch_stencil.py``."""
+    ops = os.path.join(root, "dealii_multigrid_tpu_torch", "ops")
+    path = next(p for p in (os.path.join(ops, n) for n in ("kernels.py", "patch_stencil.py"))
+                if os.path.exists(p))
     with open(path) as f:
         for node in ast.parse(f.read()).body:
             if isinstance(node, ast.Assign) and any(
@@ -143,10 +146,11 @@ def main() -> int:
     names = [os.path.normpath(d) for d in args.dirs] + ["this"]
     sources = [os.path.join(d, "dealii_multigrid_tpu_torch", "csrc", "patch_stencil.cu")
                for d in args.dirs] + [ps.SOURCE]
-    libraries = [ps._Library(src, checkout_flags(d)) for src, d in zip(sources, args.dirs)]
+    libraries = [kernels.Library("patch_stencil", ps.bind, src, checkout_flags(d))
+                 for src, d in zip(sources, args.dirs)]
     libraries.append(ps.library)
     with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
-        list(pool.map(lambda lib: lib.get(), libraries))
+        list(pool.map(lambda lib: lib.build(), libraries))
     libs = [lib.for_device(0) for lib in libraries]
     for name, lib in zip(names, libraries):
         print(f"compare_stencil: {name}: {lib.path}, built in {lib.build_seconds:.1f} s, "

@@ -62,7 +62,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    ps.build()
+    ps.library.build()
     seq = geometric_coarsening_sequence(generators.create("quadrant", 3, 7, 0))
     coarse, fine = (api.build_level_hybrid(m, 4, dev, torch.float32) for m in seq[-2:])
     tr = make_hybrid_transfer(fine.fmt, coarse.fmt, fine.op, coarse.op)

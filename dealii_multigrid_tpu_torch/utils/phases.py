@@ -41,12 +41,10 @@ trace reader would count as device activity).  The set-up's spans
 synchronize on CUDA, kept per (path of names) in ``SETUP``, and passed to a
 recording profiler as the same ranges.
 
-CUDA graphs.  A preconditioner built on the card replays its application
-as one CUDA graph (solvers/vcycle_graph.py); a replay runs no hook, so it
+CUDA graphs (solvers/vcycle_graph.py).  A replay runs no hook, so it
 records no phase span, only ``mgtpu.vcycle.graph_replay`` inside
-``mgtpu.vcycle.precondition``.  A copy made by ``instrument`` or
-``checked`` runs eagerly.  ``GRAPHS`` counts the captures, the replays and
-the eager applications on CUDA by reason.
+``mgtpu.vcycle.precondition``; a copy made by ``instrument`` or
+``checked`` runs eagerly.  ``GRAPHS`` counts them.
 
 AMG.  An AMG coarse solve (solvers/amg.py) runs its own phases through its
 own hook, ``amg_smooth``, ``amg_transfer`` and ``amg_dense`` at its own
@@ -57,14 +55,15 @@ Its set-up spans are ``mgtpu.setup.amg_build``, ``.amg_upload`` and
 ``.amg_factor``, and ``AMG_SHAPE`` holds the shape of the latest
 hierarchy built.
 
-This module imports nothing else of the package when it is imported, so
-that ``mesh/``, ``ops/`` and ``solvers/`` can import it.
+This module imports nothing else of the package, so that ``mesh/``,
+``ops/`` and ``solvers/`` can import it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 import time
 from contextlib import nullcontext
 from typing import Callable, NamedTuple
@@ -222,24 +221,25 @@ class PhaseRecorder:
         return out
 
 
+def hooked(obj, hook: Callable, phases: tuple = KEYS):
+    """``obj.with_hook(hook, phases)``; ``obj`` where it does not answer."""
+    with_hook = getattr(obj, "with_hook", None)
+    return obj if with_hook is None else with_hook(hook, phases)
+
+
+def hook_field(obj, name: str, hook: Callable, phases: tuple):
+    """``obj``, or a copy whose field ``name`` is ``hooked`` where that changes it."""
+    part = getattr(obj, name)
+    new = hooked(part, hook, phases)
+    return obj if new is part else dataclasses.replace(obj, **{name: new})
+
+
 def instrument(precond, hook):
     """A copy of ``precond`` whose V-cycle phases, and those of an AMG
     coarse solve, run through ``hook``, or None for a preconditioner
     without multigrid phases (AMG, AMGPETSc)."""
-    from ..solvers.coarse import with_amg_hook
-    from ..solvers.multigrid import PreconditionMG
-
-    def hooked(mg):
-        return dataclasses.replace(mg, hook=hook, coarse_solve=with_amg_hook(mg.coarse_solve, hook))
-
-    if isinstance(precond, PreconditionMG):
-        return dataclasses.replace(precond, mg=hooked(precond.mg), hook=hook)
-    lsmg = getattr(precond, "lsmg", None)
-    if lsmg is not None:  # api.PreconditionLS
-        return dataclasses.replace(precond, lsmg=hooked(lsmg))
-    if hasattr(precond, "copy_to_mg"):  # a bare local-smoothing hierarchy
-        return hooked(precond)
-    return None
+    copy = hooked(precond, hook, VCYCLE_KEYS)
+    return None if copy is precond else copy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,12 +261,16 @@ class FiniteChecked:
         return finite_check(self.phase, None, self.inner.vmult, b)
 
 
+def sanitizer_enabled() -> bool:
+    """Debug mode, the JAX package's ``MGTPU_DEBUG`` (any value but empty or
+    "0"): ``ops.hybrid_format.verify_format`` at each level's build, ``checked``."""
+    return os.environ.get("MGTPU_DEBUG", "") not in ("", "0")
+
+
 def checked(precond, phase: str = "amg"):
     """``precond`` itself, or in debug mode (``MGTPU_DEBUG``) a copy whose
     V-cycle phases run through ``finite_check``; a preconditioner without
     such phases is checked as a whole, under the name ``phase``."""
-    from ..ops.hybrid_format import sanitizer_enabled
-
     if not sanitizer_enabled():
         return precond
     return instrument(precond, finite_check) or FiniteChecked(precond, phase)
@@ -377,11 +381,7 @@ class GraphCounts:
     engage: ``captures`` and their ``capture_s`` (host seconds, warm-up
     included), ``replays``, and ``eager``: the applications on CUDA that ran
     without their graph, per reason ("hook", "sharded", "coarse",
-    "capturing", "input").  ``stencil`` holds the patch-stencil launches the
-    replays made, per dtype (each replay adds the calls its capture
-    recorded; ``ops.patch_stencil.launches`` counts only calls that launch
-    at once), and ``step`` those of the Chebyshev step kernel
-    (``ops.chebyshev_step``)."""
+    "capturing", "input")."""
 
     def __init__(self):
         self.reset()
@@ -391,8 +391,6 @@ class GraphCounts:
         self.capture_s = 0.0
         self.replays = 0
         self.eager: dict = {}
-        self.stencil: dict = {}
-        self.step: dict = {}
 
     def summary(self) -> dict:
         return {"captures": self.captures, "replays": self.replays,
@@ -412,8 +410,8 @@ GRAPHS = GraphCounts()
 #: amg.py replaces it at each build; empty before any), for counters and
 #: least bytes: per level, finest first, its ``rows``, the stored entries
 #: of A (``nnz_A``) and of the prolongator from the next coarser level
-#: (``nnz_P``; 0 on the finest), and the ELL widths ``K_A``, ``K_P``,
-#: ``K_PT``; the ELL values' dtype; the dense coarsest level's rows, the
+#: (``nnz_P``; 0 on the finest), the ELL widths ``K_A``, ``K_P``, ``K_PT``,
+#: ``bytes`` and ``omega``; the ELL values' dtype; the dense coarsest level's rows, the
 #: nonzero entries of its matrix's lower triangle, diagonal included
 #: (``dense_nnz``: the fewest a factor holds), and its factor's dtype;
 #: ``n_cycles`` and ``n_smooth``.

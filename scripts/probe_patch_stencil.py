@@ -40,6 +40,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import MAIN_SHAPES, assembled, bound, card_line, time_ms  # noqa: E402
+from dealii_multigrid_tpu_torch.ops import kernels  # noqa: E402
 from dealii_multigrid_tpu_torch.ops import patch_stencil as ps  # noqa: E402
 
 
@@ -174,7 +175,7 @@ def build_variants(edits: dict) -> dict:
     import ctypes
 
     src = open(ps.SOURCE).read()
-    out_dir = os.path.join(ps.BUILD_DIR, "variants")
+    out_dir = os.path.join(kernels.BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for name, pairs in edits.items():
@@ -188,7 +189,7 @@ def build_variants(edits: dict) -> dict:
             f.write(text)
         so = os.path.join(out_dir, f"lib{name}.so")
         procs[name] = (so, subprocess.Popen(
-            [ps.library._nvcc(), *ps.NVCC_FLAGS, "-o", so, cu],
+            [ps.library.nvcc(), *kernels.NVCC_FLAGS, "-o", so, cu],
             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
     libs = {}
     for name, (so, proc) in procs.items():
@@ -276,7 +277,7 @@ def main() -> int:
         return 2
     dev = torch.device("cuda:0")
     card = card_line()
-    ps.build()
+    ps.library.build()
     print(f"library {ps.library.path}; card {card}", flush=True)
     if "--sass" in sys.argv:
         for name, hist in sass_histogram(ps.library.path, r"fused_stencilI[fd]Li4E").items():

@@ -56,7 +56,9 @@ def assert_same_solve(jres, tres):
 
 
 def amg_of(solver) -> AMGPreconditioner:
-    amg = tcoarse.find_amg(solver)
+    """The AMG of a coarse or only solve: the solver itself, or on the
+    hybrid engine the AMG in its slot wrapper."""
+    amg = solver.inner if isinstance(solver, tcoarse.SlottedSolver) else solver
     assert isinstance(amg, AMGPreconditioner) and len(amg.levels) >= 2
     return amg
 
@@ -70,7 +72,8 @@ def test_truncated_hpmg_with_amg_coarse_matches_jax(small_direct_limit, coarse, 
     tres, _, levels = tapi.run(params(TParams, *args), "cpu")
     assert_same_solve(jres, tres)
     assert [lv.degree for lv in levels] == [1, 2] and levels[0].mesh is levels[1].mesh
-    amg = amg_of(tres.mg.coarse_solve)
+    solver = tres.mg.coarse_solve
+    amg = amg_of(solver.preconditioner if coarse == "cg_with_amg" else solver)
     assert amg.levels[0].A.shape[0] == levels[0].dofh.n_dofs == 1008
     assert amg.n_cycles == (n_cycles if coarse != "cg_with_amg" else 1)
 

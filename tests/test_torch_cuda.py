@@ -555,8 +555,8 @@ def test_pmg_with_an_amg_coarse_solve_is_captured_and_replays_bit_for_bit(cuda, 
     prm = small_params("PMG", 4, 2, "double", "float")
     prm.mg_data.coarse_solver.n_cycles = 2
     res, _, levels = api.run(prm, cuda)
-    found = coarse.find_amg(res.mg.coarse_solve)
-    assert found is not None and len(found.levels) >= 2
+    found = res.mg.coarse_solve.inner          # the AMG in its slot wrapper
+    assert isinstance(found, amg.AMGPreconditioner) and len(found.levels) >= 2
     _op, rhs, _ = api._outer_problem(prm, levels[-1], cuda)
     GRAPHS.reset()
     precond = PreconditionMG(res.mg, torch.float64)
@@ -654,17 +654,21 @@ def smoothers_of(precond):
 
 
 def test_replay_with_the_step_kernel_equals_the_eager_chain(graphed, monkeypatch):
-    """The captured application holds the step kernel; its replays equal
-    the eager application without the kernel bit for bit."""
+    """The captured application holds the step kernel, and each replay
+    counts its launches; its replays equal the eager application without
+    the kernel bit for bit."""
     from dealii_multigrid_tpu_torch.ops import chebyshev_step as cs
     from dealii_multigrid_tpu_torch.solvers import chebyshev
 
     precond, eager, _op, rhs, _graphs = graphed
-    assert cs.captured.count > 0
+    calls = precond.graph.calls["chebyshev_step"]
+    assert sum(calls.values()) > 0
     gen = torch.Generator().manual_seed(19)
     bs = [torch.randn(rhs.shape, generator=gen, dtype=torch.float64).to(rhs.device)
           for _ in range(2)]
+    before = dict(cs.launches.per_dtype)
     got = [precond.vmult(b) for b in bs]
+    assert all(cs.launches.per_dtype[k] - before.get(k, 0) == 2 * n for k, n in calls.items())
     monkeypatch.setattr(chebyshev, "takes_kernel", lambda op, v: False)
     before = cs.launches.count
     for g, b in zip(got, bs):

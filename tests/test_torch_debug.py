@@ -18,6 +18,7 @@ from dealii_multigrid_tpu_torch.models import stokes as TS
 from dealii_multigrid_tpu_torch.ops import hybrid_format as HF
 from dealii_multigrid_tpu_torch.solvers import multigrid
 from dealii_multigrid_tpu_torch.solvers.multigrid import PreconditionMG
+from dealii_multigrid_tpu_torch.utils import phases
 from dealii_multigrid_tpu_torch.utils.params import MultigridParameters, RunParameters
 
 from test_torch_hp_solve import params
@@ -29,14 +30,14 @@ def test_variable_switches_format_verification(monkeypatch):
     monkeypatch.setattr(api, "verify_format", lambda fmt: calls.append(verify(fmt)))
     mesh = TG.create("quadrant", 3, 3)
     monkeypatch.setenv("MGTPU_DEBUG", "1")
-    assert HF.sanitizer_enabled()
+    assert phases.sanitizer_enabled()
     lv = api.build_level_hybrid(mesh, 2, "cpu", torch.float32)
     assert len(calls) == 1
     monkeypatch.setenv("MGTPU_DEBUG", "0")
-    assert not HF.sanitizer_enabled()
+    assert not phases.sanitizer_enabled()
     api.build_level_hybrid(mesh, 2, "cpu", torch.float32)
     monkeypatch.delenv("MGTPU_DEBUG")
-    assert not HF.sanitizer_enabled()
+    assert not phases.sanitizer_enabled()
     api.build_level_hybrid(mesh, 2, "cpu", torch.float32)
     assert len(calls) == 1
     HF.verify_format(lv.fmt)

@@ -27,7 +27,6 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from dealii_multigrid_tpu_torch.solvers import amg as tamg, coarse
-from dealii_multigrid_tpu_torch.solvers.vcycle_graph import static_reason
 from dealii_multigrid_tpu_torch.utils import phases
 
 BENCH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "bench_h100")
@@ -71,7 +70,7 @@ def pmg(small_amg):
     phases.AMG_SHAPE.clear()
     cell = small_cell(Degree=2)
     s = system.System(cell.params(), torch.device("cpu"))
-    return s, coarse.find_amg(s.mg.coarse_solve)
+    return s, s.mg.coarse_solve.inner          # the AMG in its slot wrapper
 
 
 def test_solve_through_the_harness_agrees_with_the_reference(small_amg):
@@ -97,8 +96,8 @@ def test_amg_phases_split_its_application_inside_cs(pmg):
     got, whole = rec.span(lambda: hooked.vmult(b))
     assert torch.equal(got, s.precond.vmult(b))
     # the original preconditioner's AMG keeps its default hook
-    assert coarse.find_amg(s.precond.mg.coarse_solve).hook is phases.untimed
-    assert coarse.find_amg(hooked.mg.coarse_solve).hook is rec
+    assert s.precond.mg.coarse_solve.inner.hook is phases.untimed
+    assert hooked.mg.coarse_solve.inner.hook is rec
     recorded = {k for k in rec.level_seconds if k[0] in phases.AMG_PHASES}
     above = range(n_levels - 1)
     assert recorded == ({("amg_smooth", k) for k in above} | {("amg_transfer", k) for k in above}
@@ -118,8 +117,8 @@ def test_amg_phases_split_its_application_inside_cs(pmg):
     assert vc <= 1e3 * whole
     assert _reader("amg.ms_per_it")(run) == pytest.approx(1e3 * amg_s, rel=1e-12)
     # a hooked AMG keeps the preconditioner out of a CUDA graph
-    assert static_reason((phases.untimed,), (), s.precond.mg.coarse_solve) is None
-    assert static_reason((phases.untimed,), (), hooked.mg.coarse_solve) == "hook"
+    assert s.precond.mg.coarse_solve.graph_reason() is None
+    assert hooked.mg.coarse_solve.graph_reason() == "hook"
 
 
 def test_amg_spans_nest_inside_the_coarse_solve(pmg):
@@ -189,7 +188,7 @@ def test_amg_least_bytes_by_hand():
 def test_a_hierarchy_without_an_amg_reads_as_before():
     phases.SETUP.clear()
     s = system.System(small_cell("hmg_global_q4.quadrant_r7").params(), torch.device("cpu"))
-    assert coarse.find_amg(s.mg.coarse_solve) is None
+    assert type(s.mg.coarse_solve) is coarse.DirectCoarseSolver
     rec = phases.PhaseRecorder(torch.device("cpu"))
     pre = s.instrumented(rec)
     its = sum(rec.span(lambda: s.solve(s.rhs(a, 0.5), pre))[0].n_iterations for a in (0.7, 1.3))
@@ -231,22 +230,28 @@ def _lap2d_amg():
     return tamg.build_amg(A, torch.float64, "cpu", coarse_size=20)
 
 
+#: each wrapper of the AMG: (make it, find the AMG in it, its reason unhooked)
 WRAPS = {
-    "bare": lambda a: a,
-    "slotted": lambda a: coarse.SlottedSolver(a, torch.arange(36), torch.arange(36)),
-    "cg_with_amg": lambda a: coarse.make_cg_coarse_solver(
+    "bare": (lambda a: a, lambda s: s, None),
+    "slotted": (lambda a: coarse.SlottedSolver(a, torch.arange(36), torch.arange(36)),
+                lambda s: s.inner, None),
+    "cg_with_amg": (lambda a: coarse.make_cg_coarse_solver(
         None, coarse.SlottedSolver(a, torch.arange(36), torch.arange(36))),
+        lambda s: s.preconditioner.inner, "coarse"),
 }
 
 
 @pytest.mark.parametrize("wrap", list(WRAPS))
 def test_with_amg_hook_copies_the_amg_inside_each_coarse_solver(wrap):
-    solver = WRAPS[wrap](_lap2d_amg())
+    make, amg_in, reason = WRAPS[wrap]
+    solver = make(_lap2d_amg())
     rec = phases.PhaseRecorder(torch.device("cpu"))
-    hooked = coarse.with_amg_hook(solver, rec)
-    assert coarse.find_amg(hooked).hook is rec
-    assert coarse.find_amg(solver).hook is phases.untimed
-    assert coarse.find_amg(hooked).levels is coarse.find_amg(solver).levels
+    hooked = solver.with_hook(rec)
+    assert amg_in(hooked).hook is rec and hooked.graph_reason() == "hook"
+    assert amg_in(solver).hook is phases.untimed and solver.graph_reason() == reason
+    assert amg_in(hooked).levels is amg_in(solver).levels
+    # hooking V-cycle phases only (``instrument``) leaves it as it is
+    assert solver.with_hook(rec, phases.VCYCLE_KEYS) is solver
     # a coarse solver without an AMG is handed back as it is
     direct = coarse.DirectCoarseSolver(torch.eye(3, dtype=torch.float64))
-    assert coarse.with_amg_hook(direct, rec) is direct
+    assert phases.hooked(direct, rec) is direct

@@ -122,6 +122,95 @@ def test_solve_spans_name_levels_and_nest(mg_type):
                 or outer == "mgtpu.setup.eigenvalues"), outer
 
 
+def application_spans(prof) -> list:
+    """Each span of a profile but the operator's parts, in order, as
+    (name less ``mgtpu.``, its enclosing span's, the operator parts whose
+    innermost other span it is)."""
+    rows, owner = [], {}
+    for e in solve_spans(prof):
+        if e.name[len("mgtpu.operator."):] in OPERATOR_PARTS:
+            outer = e.parent
+            while outer is not None and outer.name[len("mgtpu.operator."):] in OPERATOR_PARTS:
+                outer = outer.parent
+            owner[outer][2] += 1
+            continue
+        owner[e] = [e.name[6:], parent_name(e) and parent_name(e)[6:], 0]
+        rows.append(owner[e])
+    return [tuple(r) for r in rows]
+
+
+def _vcycle(top: int, edge: bool) -> list:
+    """A V-cycle's spans from level ``top`` down to a coarse solve without
+    phases of its own, as ``application_spans`` lists them (r=2 p=2)."""
+    P = "vcycle.precondition"
+    down, up = [], []
+    for lv in range(top, 0, -1):
+        down += [(f"smoother.pre@L{lv}", P, 20), (f"operator.residuum@L{lv}", P, 5)]
+        down += [(f"ls_interface.edge_pro@L{lv}", P, 2)] if edge else []
+        down += [(f"transfer.res@L{lv}", P, 0)]
+        up = ([(f"transfer.pro@L{lv}", P, 0)] + ([(f"ls_interface.edge_pro@L{lv}", P, 2)] if edge else [])
+              + [(f"smoother.post@L{lv}", P, 25)]) + up
+    return ([(P, None, 0), (f"vcycle.to_mg@L{top}", P, 0)] + down + [("coarse.cs@L0", P, 0)] + up
+            + [(f"vcycle.to_global@L{top}", P, 0)])
+
+
+def _amg_cycle(n: int) -> list:
+    """An AMG coarse solve's spans inside ``cs``: ``n`` levels, one cycle."""
+    cs = "coarse.cs@L0"
+    down = [row for k in range(n - 1)
+            for row in ((f"amg.amg_smooth@A{k}", cs, 0), (f"amg.amg_transfer@A{k}", cs, 0))]
+    up = [row for k in reversed(range(n - 1))
+          for row in ((f"amg.amg_transfer@A{k}", cs, 0), (f"amg.amg_smooth@A{k}", cs, 0))]
+    return down + [(f"amg.amg_dense@A{n - 1}", cs, 0)] + up
+
+
+def _pmg_amg() -> list:
+    spans = _vcycle(1, False)
+    at = spans.index(("coarse.cs@L0", "vcycle.precondition", 0)) + 1
+    return spans[:at] + _amg_cycle(3) + spans[at:]
+
+
+#: one application's spans: HMG-global and HMG-local at quadrant r=2 p=2,
+#: PMG at r=3 p=2 with the AMG on its Q1 level (three AMG levels)
+APPLICATION_SPANS = {
+    "HMG-global": _vcycle(2, False),
+    "HMG-local": _vcycle(2, True),
+    "PMG": _pmg_amg(),
+}
+
+
+@pytest.mark.parametrize("path", ["eager", "instrumented", "debug"])
+@pytest.mark.parametrize("mg_type", list(APPLICATION_SPANS))
+def test_one_application_records_the_same_spans_on_every_path(monkeypatch, mg_type, path):
+    """One application of the preconditioner, eager on the CPU, as it is,
+    as the phase recorder's copy and as debug mode's checked copy: the
+    same spans, in the same order and nesting, with the same operator
+    parts inside each."""
+    import functools
+
+    from dealii_multigrid_tpu_torch.solvers import amg, coarse
+
+    prm = small(mg_type)
+    if mg_type == "PMG":
+        monkeypatch.setattr(coarse, "DIRECT_SOLVER_MAX_DOFS", 100)
+        monkeypatch.setattr(coarse, "build_amg", functools.partial(amg.build_amg, coarse_size=20))
+        prm.n_ref_global = 3
+        prm.mg_data.coarse_solver.type = "amg"
+    res, _, levels = api.run(prm, "cpu")
+    if res.mg is not None:
+        precond = api.PreconditionMG(res.mg, torch.float64)
+    else:
+        precond = api.PreconditionLS(res.ls_mg, levels[-1].op.constrained_keep, torch.float64)
+    if path == "instrumented":
+        precond = phases.instrument(precond, phases.PhaseRecorder(torch.device("cpu")))
+    elif path == "debug":
+        monkeypatch.setenv("MGTPU_DEBUG", "1")
+        precond = phases.checked(precond)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        precond.vmult(res.rhs_used)
+    assert application_spans(prof) == APPLICATION_SPANS[mg_type]
+
+
 class _Refused:
     def __init__(self, name):
         raise RuntimeError(f"a profiler range was entered: {name}")

@@ -9,6 +9,8 @@ chain in float64.  The CUDA kernel itself runs only on the card
 the band passed is the widest the wrapper takes; the plain version ignores it.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +18,7 @@ import pytest
 import torch
 
 from dealii_multigrid_tpu.ops import pallas_stencil as jps
-from dealii_multigrid_tpu_torch.ops import patch_stencil as ps, tensor
+from dealii_multigrid_tpu_torch.ops import kernels, patch_stencil as ps, tensor
 from dealii_multigrid_tpu_torch.ops.hybrid_format import _assembled_1d
 
 
@@ -155,7 +157,7 @@ def test_kernel_source_names_the_tpu_kernel_it_replaces():
     with open(ps.SOURCE) as f:
         src = f.read()
     assert "dealii_multigrid_tpu/ops/pallas_stencil.py" in src
-    assert "sm_90a" in " ".join(ps.NVCC_FLAGS)
+    assert "sm_90a" in " ".join(kernels.NVCC_FLAGS)
 
 
 def test_library_tag_changes_with_the_source_and_the_flags(tmp_path):
@@ -168,22 +170,25 @@ def test_library_tag_changes_with_the_source_and_the_flags(tmp_path):
     changed = tmp_path / "changed.cu"
     changed.write_bytes(open(ps.SOURCE, "rb").read() + b"// changed\n")
     here = ps.library.target()
-    assert ps.source_tag() in here and here.startswith(ps.BUILD_DIR)
-    assert ps._Library(str(same)).target() == here
-    assert ps._Library(str(changed)).target() != here
-    assert ps._Library(str(same), ps.NVCC_FLAGS + ("-lineinfo",)).target() != here
+    assert kernels.source_tag(ps.SOURCE) in here and here.startswith(kernels.BUILD_DIR)
+    assert os.path.basename(here).startswith("libpatch_stencil_")
+
+    def library(source, flags=kernels.NVCC_FLAGS):
+        return kernels.Library("patch_stencil", ps.bind, str(source), flags)
+
+    assert library(same).target() == here
+    assert library(changed).target() != here
+    assert library(same, kernels.NVCC_FLAGS + ("-lineinfo",)).target() != here
 
 
 def test_compare_stencil_reads_each_checkouts_flags_and_needs_a_card(monkeypatch, capsys):
     """tools/compare_stencil.py builds another checkout's kernel with that
     checkout's own NVCC_FLAGS, and without a card it exits 2 before it
     builds anything."""
-    import os
-
     from dealii_multigrid_tpu_torch.tools import compare_stencil
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(ps.SOURCE)))
-    assert compare_stencil.checkout_flags(os.path.dirname(root)) == ps.NVCC_FLAGS
+    assert compare_stencil.checkout_flags(os.path.dirname(root)) == kernels.NVCC_FLAGS
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr("sys.argv", ["compare_stencil", os.path.dirname(root)])
     assert compare_stencil.main() == 2

@@ -1,10 +1,11 @@
 """The preconditioners' CUDA graphs (solvers/vcycle_graph.py), on the CPU.
 
 There is no card here, so the rules that decide between replay and an eager
-application are checked on stand-in objects: each rule alone selects the
+application are checked on hierarchies of stand-in parts: each object
+answers ``graph_reason()`` for itself, and each rule alone selects the
 eager path and counts its reason.  The replay's own bookkeeping (the cast
-into the static vector, a fresh output, the counts) is checked with a
-stand-in graph.  A phase-recorder copy made by ``instrument`` neither
+into the static vector, a fresh output, the counts, the kernels' launches)
+is checked with a stand-in graph.  A phase-recorder copy made by ``instrument`` neither
 shares nor inherits its original's graph, and on the CPU the
 preconditioners build no graph and apply exactly the eager V-cycle (the
 card's tests, tests/test_torch_cuda.py, hold the replay to it bit for bit).
@@ -17,6 +18,8 @@ import pytest
 import torch
 
 from dealii_multigrid_tpu_torch import api
+from dealii_multigrid_tpu_torch.ops import kernels
+from dealii_multigrid_tpu_torch.parallel.sharding import GatheredSolve
 from dealii_multigrid_tpu_torch.solvers import vcycle_graph as vg
 from dealii_multigrid_tpu_torch.solvers.cg import cg_solve
 from dealii_multigrid_tpu_torch.solvers.coarse import (
@@ -24,7 +27,8 @@ from dealii_multigrid_tpu_torch.solvers.coarse import (
     DirectCoarseSolver,
     SlottedSolver,
 )
-from dealii_multigrid_tpu_torch.solvers.multigrid import PreconditionMG
+from dealii_multigrid_tpu_torch.solvers.local_smoothing import LocalSmoothingMGHybrid, LSHybridLevel
+from dealii_multigrid_tpu_torch.solvers.multigrid import Multigrid, PreconditionMG
 from dealii_multigrid_tpu_torch.utils import phases
 from dealii_multigrid_tpu_torch.utils.params import RunParameters
 
@@ -45,24 +49,35 @@ def direct():
     return DirectCoarseSolver(torch.eye(3))
 
 
+def hierarchy(coarse=None, hook=phases.untimed, parts=()):
+    """A multigrid hierarchy of the stand-in operators ``parts``."""
+    return Multigrid(tuple(parts), (), (), direct() if coarse is None else coarse, hook)
+
+
+def ls_level(op):
+    """A local-smoothing level over the stand-in operator ``op``."""
+    return LSHybridLevel(op, *[None] * 7, n_dofs=0, fmt=None)
+
+
 def test_a_sound_hierarchy_has_no_reason():
-    assert vg.static_reason((phases.untimed,), (SimpleNamespace(comm=None),), direct()) is None
+    assert hierarchy(parts=(SimpleNamespace(comm=None),)).graph_reason() is None
 
 
 @pytest.mark.parametrize("hook", [phases.finite_check, phases.PhaseRecorder(torch.device("cpu"))])
 def test_a_phase_hook_selects_eager(hook):
-    assert vg.static_reason((phases.untimed, hook), (), direct()) == "hook"
+    assert hierarchy(hook=hook).graph_reason() == "hook"
 
 
 @pytest.mark.parametrize("part", [
-    SimpleNamespace(comm=object()),                    # a rank operator or transfer
-    SimpleNamespace(op=SimpleNamespace(comm=object())),  # an LS level over a rank operator
-])
+    lambda: hierarchy(parts=(SimpleNamespace(comm=object()),)),   # a rank operator or transfer
+    lambda: LocalSmoothingMGHybrid(                                # an LS level over a rank operator
+        (ls_level(SimpleNamespace(comm=object())),), (), (), direct(), 0),
+], ids=["part0", "part1"])
 def test_a_rank_communicator_selects_eager(part):
-    assert vg.static_reason((phases.untimed,), (part,), direct()) == "sharded"
+    assert part().graph_reason() == "sharded"
     # a coarse solve gathered over the ranks (parallel/sharding.GatheredSolve)
-    gathered = SimpleNamespace(inner=direct(), op=SimpleNamespace(comm=object()))
-    assert vg.static_reason((phases.untimed,), (), gathered) == "sharded"
+    gathered = GatheredSolve(direct(), SimpleNamespace(comm=object()))
+    assert gathered.graph_reason() == "sharded"
 
 
 def cg_coarse():
@@ -75,12 +90,12 @@ def cg_coarse():
     (SlottedSolver(direct(), torch.arange(3), torch.arange(3)), None),
     (cg_coarse(), "coarse"),                                       # reads its residual to the host
     (SlottedSolver(cg_coarse(), torch.arange(3), torch.arange(3)), "coarse"),
-    (lambda b: b, "coarse"),                                       # unknown to the rules
+    (lambda b: b, "coarse"),                                       # does not answer
     (SimpleNamespace(graph_reason=lambda: None), None),            # a sound preconditioner
     (SimpleNamespace(graph_reason=lambda: "hook"), "coarse"),      # one that is not
 ])
 def test_a_coarse_solve_that_may_read_back_selects_eager(coarse, reason):
-    assert vg.static_reason((phases.untimed,), (), coarse) == reason
+    assert hierarchy(coarse).graph_reason() == reason
 
 
 def test_a_reason_builds_no_graph_and_counts_each_application(counts):
@@ -109,13 +124,13 @@ class DoublingGraph:
         self.replays += 1
 
 
-def captured(outer=torch.float64, level=torch.float32, n=5, stencil=None, step=None):
+def replaying(outer=torch.float64, level=torch.float32, n=5, calls=None):
     buf = torch.zeros(n, dtype=level)
-    return vg.VCycleGraph(None, outer, buf, DoublingGraph(buf), stencil, step)
+    return vg.VCycleGraph(None, outer, buf, DoublingGraph(buf), calls or {})
 
 
 def test_the_stream_already_capturing_selects_eager(counts, monkeypatch):
-    state = captured()
+    state = replaying()
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
     assert not state.takes(torch.ones(5, dtype=torch.float64))
     assert counts.eager == {"capturing": 1} and state.graph.replays == 0
@@ -129,12 +144,14 @@ def test_the_stream_already_capturing_selects_eager(counts, monkeypatch):
     (torch.ones(5), torch.zeros(5)),                               # a twofloat pair
 ])
 def test_an_input_unlike_the_captured_one_selects_eager(counts, b):
-    assert not captured().takes(b)
+    assert not replaying().takes(b)
     assert counts.eager == {"input": 1}
 
 
 def test_a_replay_casts_in_and_returns_a_fresh_output(counts):
-    state = captured(stencil={torch.float32: 3}, step={torch.float32: 5})
+    state = replaying(calls={"patch_stencil": {torch.float32: 3},
+                             "chebyshev_step": {torch.float32: 5}})
+    before = kernels.counts()
     b = torch.tensor([1.0, 2.0, 3.0, 1.0 + 2.0**-30, -0.5], dtype=torch.float64)
     assert state.takes(b)
     z1 = state.replay(b)
@@ -144,12 +161,30 @@ def test_a_replay_casts_in_and_returns_a_fresh_output(counts):
     state.replay(3 * b)
     state.replay(5 * b)
     assert torch.equal(z1, kept)                                   # FirstApply's kept output
-    assert counts.replays == 3 and counts.stencil == {torch.float32: 9} and not counts.eager
-    assert counts.step == {torch.float32: 15}
+    assert counts.replays == 3 and not counts.eager
+    # each replay launches what its capture recorded
+    added = {name: {k: n - before.get(name, {}).get(k, 0) for k, n in c.items()}
+             for name, c in kernels.counts().items()}
+    assert added == {"patch_stencil": {torch.float32: 9}, "chebyshev_step": {torch.float32: 15}}
+
+
+def test_a_capture_takes_its_calls_off_the_counters():
+    """A capture launches nothing: its calls come off the counters, and
+    ``RECORDED`` keeps them (each capture's warm-up launched as many)."""
+    stencil = kernels.counter("patch_stencil")
+    before, recorded = kernels.counts(), kernels.counts(kernels.RECORDED)
+    with kernels.recorded() as calls:
+        for dtype in (torch.float32, torch.float32, torch.float64):
+            stencil.add(dtype)
+    assert calls == {"patch_stencil": {torch.float32: 2, torch.float64: 1}}
+    assert kernels.counts() == before
+    was = recorded.get("patch_stencil", {})
+    assert kernels.counts(kernels.RECORDED)["patch_stencil"] == {
+        k: was.get(k, 0) + n for k, n in calls["patch_stencil"].items()}
 
 
 def test_equal_dtypes_return_a_clone_of_the_static_vector():
-    state = captured(outer=torch.float32)
+    state = replaying(outer=torch.float32)
     z = state.replay(torch.ones(5))
     assert torch.equal(z, torch.full((5,), 2.0))
     assert z.data_ptr() != state.buf.data_ptr()
