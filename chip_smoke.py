@@ -20,11 +20,21 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      the first step of a smoothing from x.  Time each (CUDA events) beside
      its bound by bytes (8 accesses of the level vector, 7 where x is d or
      no d is read) and the eager chain's time;
+  3d. build the assembly exchange kernel (ops/assembly_exchange.py) and
+     hold it to its plain version, the eager chain, bit for bit and run to
+     run, in float32 and float64 at hypercube r=6 p=4's finest level, and
+     (after b) in float32 at quadrant r=7's L5 and L7 and in float64 at L7;
+     time each (CUDA events) beside its bound by bytes and the eager chain's
+     time (with the copy the exchange made before the kernel);
   4. solve, each path through api.run on cuda:0 with the launch counts set
-     to 0 just before it and read just after: the stencil's, and the
+     to 0 just before it and read just after: the stencil's, the
      Chebyshev step kernel's, which every path checks at 5 (2 x degree - 1)
      per float32 or float64 smoothed level per V-cycle (bfloat16 levels run
-     the eager chain) besides the warm-ups of its captures;
+     the eager chain) besides the warm-ups of its captures, and the exchange
+     kernel's, which every path checks at its plan's launches (at most 3)
+     per exchange on a float32 or float64 operator: one per operator
+     application, one per restriction on its coarse level, the guard's and
+     the right-hand side's, besides the warm-ups;
      a. a small double-precision HMG-global solve on the card against the
         same solve on the CPU (plain stencil path);
      b. the main path: HMG-global quadrant r=7 p=4 (17,551,967 DoFs, float
@@ -467,6 +477,43 @@ def check_chebyshev_step(dev: torch.device, card: str) -> dict:
     return out
 
 
+def check_exchange(label: str, op, card: str) -> tuple:
+    """Phase 3d: the exchange kernel on one level (``op``, a HybridOperator on
+    the card) against the eager chain, bit for bit, run to run, and with its
+    plan's launches; its time (CUDA events, on a zero vector: the time does
+    not depend on the values) beside its bound by bytes (``ExchangePlan.
+    bytes``) and the eager chain's time, with the whole-vector copy the
+    exchange made before the kernel; (ms, plain_ms, bound_ms, max_abs_err)."""
+    from dealii_multigrid_tpu_torch.ops import assembly_exchange as ax
+
+    plan = op.exchange_plan
+    gen = torch.Generator(device=op.device).manual_seed(20)
+    raw = torch.randn(op.n_slots, generator=gen, dtype=op.dtype, device=op.device)
+    want = ax.reference_(op, raw.clone())
+    before = ax.launches.count
+    got, again = op.exchange_(raw.clone()), op.exchange_(raw.clone())
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    tag = f"exchange kernel at {label} ({DTYPE_TAG[op.dtype]}, NP={op.NP} S={op.S} NS={op.NS} " \
+          f"use_cross={op.use_cross}, {plan.n_groups} irregular groups)"
+    check(ax.launches.count - before == 2 * plan.launches,
+          f"{tag}: {ax.launches.count - before} launches for two exchanges of {plan.launches}")
+    check(torch.equal(got, again), f"{tag}: two runs differ")
+    check(torch.equal(got, want), f"{tag}: differs from the eager chain, max_abs_err={err:.3e}")
+    del got, again, want, raw
+    buf = torch.zeros(op.n_slots, dtype=op.dtype, device=op.device)
+    bound_ms = 1e3 * plan.bytes(op.dtype) / HBM_BYTES_PER_S
+    t_plain = [time_ms(lambda: ax.reference_(op, buf.clone()), TIMED_LAUNCHES)]
+    t_kern = [time_ms(lambda: op.exchange_(buf), TIMED_LAUNCHES) for _ in range(2)]
+    t_plain.append(time_ms(lambda: ax.reference_(op, buf.clone()), TIMED_LAUNCHES))
+    ms = min(t_kern)
+    print(f"{tag}: bit-equal to the eager chain, bit-repeatable, {plan.launches} launches; kernel "
+          f"{ms:.6f} ms {t_kern}, eager chain {min(t_plain):.6f} ms {t_plain}, bound "
+          f"{1e3 * bound_ms:.2f} us ({plan.bytes(op.dtype)} bytes), roofline share "
+          f"{bound_ms / ms:.4f}; card {card}", flush=True)
+    return ms, min(t_plain), bound_ms, err
+
+
 class Entry(NamedTuple):
     """One operator of a solve path, as the stencil launches it, and the
     Chebyshev step kernel launches of its smoother."""
@@ -538,8 +585,45 @@ def expected_launches(entries, iterations, setup: bool = True) -> int:
     return n + (1 if entries[0].op.NP > 0 else 0)
 
 
+def exchange_launches_of(op) -> int:
+    """Exchange kernel launches of one exchange on ``op``: its plan's axes
+    with a group where the kernel takes the level's vectors (CUDA, float32
+    or float64); none on bfloat16 levels, which run the torch chain."""
+    from dealii_multigrid_tpu_torch.ops import assembly_exchange as ax
+
+    plan = getattr(op, "exchange_plan", None)
+    return plan.launches if plan is not None and op.dtype in ax.DTYPES else 0
+
+
+def restriction_ops(*cycles) -> list:
+    """The coarse operator of each restriction in one application of the
+    V-cycles ``cycles`` (Multigrid and local-smoothing hierarchies; None
+    skipped): each restriction ends with one exchange on it."""
+    return [t.coarse_op for mg in cycles if mg is not None
+            for t in mg.transfers if hasattr(t, "coarse_op")]
+
+
+def expected_exchanges(entries, restrictions, iterations, setup: bool = True,
+                       extra: int = 0, extra_op=None) -> int:
+    """Exchange kernel launches a solve path implies: each operator
+    application one exchange (the entries' applications per iteration and,
+    with ``setup``, their eigenvalue estimates and the right-hand side's
+    assembly on the finest entry), each restriction one on its coarse
+    operator per iteration, the residual guard one on the finest entry, and
+    ``extra`` applications of ``extra_op`` (a coarse CG); times each
+    operator's launches per exchange."""
+    n_it = sum(iterations)
+    n = sum(exchange_launches_of(e.op) * (e.per_iteration * n_it + (e.setup if setup else 0))
+            for e in entries)
+    n += n_it * sum(exchange_launches_of(op) for op in restrictions)
+    n += exchange_launches_of(entries[0].op) * (2 if setup else 1)
+    return n + (extra * exchange_launches_of(extra_op) if extra else 0)
+
+
 #: Chebyshev step kernel launches per path, as ``paths`` holds the stencil's
 STEP_PATHS: dict = {}
+#: exchange kernel launches per path
+EXCHANGE_PATHS: dict = {}
 
 
 def counted(fn):
@@ -564,10 +648,12 @@ def warmup_launches(kernel: str = "patch_stencil") -> dict:
 
 
 def publish(paths: dict, key: str, launches: int) -> None:
-    """A path's stencil launches into ``paths``, and its step kernel
-    launches, as ``counted`` last counted them, into STEP_PATHS."""
+    """A path's stencil launches into ``paths``, and its step and exchange
+    kernel launches, as ``counted`` last counted them, into STEP_PATHS and
+    EXCHANGE_PATHS."""
     paths[key] = launches
     STEP_PATHS[key] = sum(launched_per_dtype("chebyshev_step").values())
+    EXCHANGE_PATHS[key] = sum(launched_per_dtype("assembly_exchange").values())
 
 
 def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -581,26 +667,35 @@ def norm_rel(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def check_solve(name: str, result, entries, launches: int, n_it: int | None = None,
-                setup: bool = True, extra_launches: int = 0) -> None:
+                setup: bool = True, extra_launches: int = 0, cycles: tuple | None = None,
+                extra_exchanges: int = 0) -> None:
     """The checks every full-size path makes, and its line of numbers.
     ``extra_launches``: launches the entries do not describe (a coarse CG on
     the coarsest level's operator), counted by the caller; the warm-ups of
     the captures (``warmup_launches``) are added here.  The Chebyshev step
     kernel launches each entry's ``steps`` per V-cycle, one V-cycle per CG
-    iteration, besides its warm-ups."""
+    iteration, besides its warm-ups.  The exchange kernel launches as
+    ``expected_exchanges`` counts, with the restrictions of ``cycles``
+    (the result's own hierarchies where None) and ``extra_exchanges`` the
+    caller counted, besides its warm-ups."""
     expect = (expected_launches(entries, result.solve_iterations, setup) + extra_launches
               + sum(warmup_launches().values()))
     its = result.solve_iterations
     steps = sum(launched_per_dtype("chebyshev_step").values())
     expect_steps = (sum(its) * sum(e.steps for e in entries)
                     + sum(warmup_launches("chebyshev_step").values()))
+    cycles = (result.mg, result.ls_mg) if cycles is None else cycles
+    exchanges = sum(launched_per_dtype("assembly_exchange").values())
+    expect_exchanges = (expected_exchanges(entries, restriction_ops(*cycles), its, setup)
+                        + extra_exchanges + sum(warmup_launches("assembly_exchange").values()))
     print(f"{name}: operators (label, NP, S, band, launches per iteration) "
           f"{[(e.label, e.op.NP, e.op.S, e.op.band, e.per_iteration) for e in entries]}",
           flush=True)
     print(f"{name}: solve iterations {its}; loop residual {result.residual_norm:.4e}, "
           f"true residual {result.true_residual:.4e} (allowance {result.guard_threshold:.4e}); "
           f"stencil launches {launches} (expected {expect}); Chebyshev step kernel launches "
-          f"{steps} (expected {expect_steps})", flush=True)
+          f"{steps} (expected {expect_steps}); exchange kernel launches {exchanges} "
+          f"(expected {expect_exchanges})", flush=True)
     check(result.converged, f"{name} did not converge")
     check(len(set(its)) == 1, f"{name}: the solves took different iteration counts {its}")
     if n_it is not None:
@@ -608,6 +703,8 @@ def check_solve(name: str, result, entries, launches: int, n_it: int | None = No
     check(result.true_residual <= result.guard_threshold, f"{name}: true-residual guard failed")
     check(launches > 0 and launches == expect, f"{name}: stencil launches {launches} != expected {expect}")
     check(steps == expect_steps, f"{name}: step kernel launches {steps} != expected {expect_steps}")
+    check(exchanges == expect_exchanges,
+          f"{name}: exchange kernel launches {exchanges} != expected {expect_exchanges}")
     check("jax" not in sys.modules, "the port imported jax")
     x = result.x
     check(x.shape == (result.n_dofs,) and bool(torch.isfinite(x).all()),
@@ -1579,7 +1676,10 @@ def phase_x(dev, card: str, measured: dict, paths: dict, done: set) -> None:
               and all(lv.op.dtype == bf for lv in levels),
               f"{name}: {res.n_dofs} DoFs, {len(levels)} levels, {[lv.op.dtype for lv in levels]}")
         entries = gc_entries(levels, prm)
-        check_solve(name, res, entries, launches)
+        # the float32 outer operator's exchanges: its vmult per iteration,
+        # the guard and the right-hand side (the bfloat16 levels launch none)
+        outer_ex = levels[-1].op.exchange_plan.launches * (sum(res.solve_iterations) + 2)
+        check_solve(name, res, entries, launches, extra_exchanges=outer_ex)
         its = res.solve_iterations
         outer = sum(its) + 1
         expect = {torch.float32: outer, bf: expected_launches(entries, its) - outer}
@@ -1833,6 +1933,21 @@ def main() -> int:
     steps = check_chebyshev_step(dev, card)
     rng = np.random.default_rng(1)
 
+    stamp("3d")
+    # 3d. the exchange kernel against the eager chain at hypercube r=6 p=4's
+    # finest level (512 x 33^3 slots, patches only)
+    from dealii_multigrid_tpu_torch.mesh import generators
+    from dealii_multigrid_tpu_torch.ops import assembly_exchange as ax
+    from dealii_multigrid_tpu_torch.ops.hybrid import make_hybrid_operator
+
+    print(f"exchange kernel build: {ax.library.build():.1f} s -> {ax.library.path}", flush=True)
+    lv6 = api.build_level_hybrid(generators.create("hypercube", 3, 6), 4, dev, torch.float32)
+    exchange_rows = {(torch.float32, "hypercube r=6 L6"): check_exchange("hypercube r=6 L6", lv6.op, card)}
+    op64 = make_hybrid_operator(lv6.fmt, lv6.hanging, dev, torch.float64)
+    exchange_rows[(torch.float64, "hypercube r=6 L6")] = check_exchange("hypercube r=6 L6", op64, card)
+    del lv6, op64
+    torch.cuda.empty_cache()
+
     stamp("4a")
     # 4a. small solve on the card against the same solve on the CPU
     small = bench_params(3, 2, "double", 1)
@@ -1868,6 +1983,13 @@ def main() -> int:
           f"(allocated before the run {before:.2f} GiB); card {card}", flush=True)
     # phase p after the peak's reading: its 20 right-hand sides are not the run's
     hybrid_sites(levels, result.mg, done, card, "main path L7/L6", p_transfer=False)
+    # 3d on the main path's levels: L5 and L7 in float32, L7 in float64
+    for l in (5, 7):
+        exchange_rows[(torch.float32, f"quadrant r=7 L{l}")] = check_exchange(
+            f"quadrant r=7 L{l}", levels[l].op, card)
+    op64 = make_hybrid_operator(levels[7].fmt, levels[7].hanging, dev, torch.float64)
+    exchange_rows[(torch.float64, "quadrant r=7 L7")] = check_exchange("quadrant r=7 L7", op64, card)
+    del op64
 
     # 5 (main path). per patch level: kernel time x launches per solve against the bound
     shapes = [(e.op.NP, e.op.S) for e in entries if e.op.NP > 0]
@@ -1944,7 +2066,7 @@ def main() -> int:
     ))
     publish(paths, "hpmg_r7_df32", launches)
     res_d.x = fine.to_global(res_d.x)
-    check_solve("HPMG r=7 df32", res_d, entries, launches, setup=False)
+    check_solve("HPMG r=7 df32", res_d, entries, launches, setup=False, cycles=(res_m.mg,))
     rel = norm_rel(res_d.x, res_m.x)
     print(f"HPMG quadrant r=7 p=4 df32/float on the same hierarchy: iterations {res_d.n_iterations} "
           f"(mixed {res_m.n_iterations}), x vs mixed {rel:.3e} relative, solve {res_d.time:.6f} s "
@@ -2116,7 +2238,8 @@ def main() -> int:
         res_l.x = fine.to_global(res_l.x)
         extra = counter.calls if counter is not None else 0
         check_solve(f"PMG r=6 mixed {kind}", res_l, entries, launches, setup=False,
-                    extra_launches=extra)
+                    extra_launches=extra, cycles=(mg_l,),
+                    extra_exchanges=extra * exchange_launches_of(counter.op) if extra else 0)
         rel = norm_rel(res_l.x, res_k.x)
         print(f"PMG quadrant r=6 p=4 mixed/float coarse {kind} (cycles {prm_l.mg_data.coarse_solver.n_cycles}) "
               f"on the same hierarchy: iterations {res_l.solve_iterations} (amg: {res_k.n_iterations}), "
@@ -2285,6 +2408,27 @@ def main() -> int:
             "library_ms": None,
         })
     kernels[-2]["launches_per_path"] = STEP_PATHS
+    # the exchange kernel: at hypercube r=6's L6 (and the other levels of
+    # 3d); f32 launches in the main path b, f64 in w's HMG-global r=3 double
+    exchange_path = {torch.float32: "hmg_global_r7_float", torch.float64: "debug_hmg_global_r3"}
+    for dtype in (torch.float32, torch.float64):
+        ms, plain_ms, bound_ms, err = exchange_rows[(dtype, "hypercube r=6 L6")]
+        kernels.append({
+            "name": f"assembly_exchange_{DTYPE_TAG[dtype]}",
+            "route": "cuda",
+            "source": "dealii_multigrid_tpu_torch/csrc/assembly_exchange.cu",
+            "replaces": "the exchange's eager chain, ops/assembly_exchange.py (no TPU kernel)",
+            "launches": EXCHANGE_PATHS[exchange_path[dtype]],
+            "max_abs_err": max(row[3] for (k, _), row in exchange_rows.items() if k == dtype),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes",
+            "roofline_share": bound_ms / ms,
+            "library_ms": None,
+            "levels": {label: row[:3] for (k, label), row in exchange_rows.items() if k == dtype},
+        })
+    kernels[-2]["launches_per_path"] = EXCHANGE_PATHS
     print(f"[chip_smoke] seconds per phase {json.dumps(phase_seconds())}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

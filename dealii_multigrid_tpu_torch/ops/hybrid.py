@@ -9,9 +9,11 @@ tensors on a device and applies
      (ops/patch_stencil.py) on the patch bucket and one element GEMM on the
      singleton bucket;
   3. C^T on structured faces (``apply_ct_faces``, descending rounds);
-  4. the assembly exchange (``exchange``): three sequential face-plane
-     sweeps (interleaved with the patch<->singleton cross terms on levels
-     with ``use_cross``), then the irregular group sums;
+  4. the assembly exchange (``exchange_``, in place; ops/
+     assembly_exchange.py): three sequential face-plane sweeps
+     (interleaved with the patch<->singleton cross terms on levels with
+     ``use_cross``), then the irregular group sums, one kernel launch per
+     sweep axis on the card;
   5. per-node C^T (``apply_ct``) and identity on constrained slots
      (``vmult_split`` returns the result before this blend).
 
@@ -33,6 +35,7 @@ import torch
 
 from ..utils.device import to_tensor
 from ..utils.phases import PREFIX, setup_span, spanned
+from . import assembly_exchange
 from .fixed_order import FixedOrderSum
 from .patch_stencil import matrix_band, patch_stencil
 
@@ -103,6 +106,8 @@ class HybridOperator:
         band = matrix_band(tables["KS"], tables["MS"])
         op = cls(tables_to_device(tables, device, dtype), meta, device, dtype, band)
         op._build_sums(tables, meta)
+        if op.device.type == "cuda":
+            op.exchange_plan = assembly_exchange.ExchangePlan.build(tables, meta).to(op.device)
         return op
 
     def _build_sums(self, t: dict, meta: dict) -> None:
@@ -272,94 +277,19 @@ class HybridOperator:
         return r * self.dirichlet_keep
 
     # ----------------------------------------------------------- exchange
-    @staticmethod
-    def _sweeps(up: torch.Tensor, nbr, nbr_mask, S: int) -> None:
-        """In place: three sequential face-plane sweeps over a bucket
-        ``[n, S, S, S]``; each axis reads its planes before writing them."""
-        for d in range(3):
-            axis = d + 1
-            top = up.select(axis, S - 1)
-            bot = up.select(axis, 0)
-            add_lo = top[nbr[2 * d]] * nbr_mask[2 * d].view(-1, 1, 1)
-            add_hi = bot[nbr[2 * d + 1]] * nbr_mask[2 * d + 1].view(-1, 1, 1)
-            bot.add_(add_lo)
-            top.add_(add_hi)
-
-    def _exchange_cross(self, r: torch.Tensor) -> None:
-        """In place on ``r``: per geometric axis, patch sweeps, singleton
-        sweeps AND patch<->singleton cross terms, all adds within an axis
-        computed from pre-axis values (host mirror: _simulate_full)."""
-        S, n1, K = self.S, self.n1, self.K
-        NP, NS = self.NP, self.NS
-        E = self.Easm
-        up = self._patches(r)
-        us = self._singles(r).view(NS, n1, n1, n1)
-        for g in range(3):
-            sax = 3 - g
-            p_lo, p_hi = up.select(g + 1, 0), up.select(g + 1, S - 1)
-            s_lo, s_hi = us.select(sax, 0), us.select(sax, n1 - 1)
-            add_plo = p_hi[self.nbr[2 * g]] * self.nbr_mask[2 * g].view(-1, 1, 1)
-            add_phi = p_lo[self.nbr[2 * g + 1]] * self.nbr_mask[2 * g + 1].view(-1, 1, 1)
-            ds = 2 - g  # snbr tables are lattice-axis ([z, y, x]) ordered
-            add_slo = s_hi[self.snbr[2 * ds]] * self.snbr_mask[2 * ds].view(-1, 1, 1)
-            add_shi = s_lo[self.snbr[2 * ds + 1]] * self.snbr_mask[2 * ds + 1].view(-1, 1, 1)
-            for side_p in (0, 1):
-                tbl = self.cross[2 * g + side_p]
-                if tbl is None:
-                    continue
-                ppos, sidx = tbl
-                ppre, spre = (p_lo, s_hi) if side_p == 0 else (p_hi, s_lo)
-                # singleton planes [m, n1, n1] -> dense patch-face grid ->
-                # overlap-assembled [NP, S, S] via two small GEMMs
-                sp = spre[sidx].transpose(1, 2)
-                grid = torch.zeros((NP * K * K, n1, n1), dtype=r.dtype, device=r.device)
-                grid[ppos] = sp
-                Gm = (
-                    grid.view(NP, K, K, n1, n1)
-                    .permute(0, 1, 3, 2, 4)
-                    .reshape(NP, K * n1, K * n1)
-                )
-                Z = torch.einsum("su,puv,tv->pst", E, Gm, E)
-                # reverse: extract the n1 x n1 subblocks of the patch face
-                Gi = torch.einsum("su,pst,tv->puv", E, ppre, E)
-                sub = (
-                    Gi.view(NP, K, n1, K, n1)
-                    .permute(0, 1, 3, 2, 4)
-                    .reshape(NP * K * K, n1, n1)[ppos]
-                )
-                subT = sub.transpose(1, 2)
-                csum = self.cross_sums[2 * g + side_p]
-                if side_p == 0:
-                    add_plo = add_plo + Z
-                    add_shi = csum.add_into(add_shi, subT)
-                else:
-                    add_phi = add_phi + Z
-                    add_slo = csum.add_into(add_slo, subT)
-            p_lo.add_(add_plo)
-            p_hi.add_(add_phi)
-            s_lo.add_(add_slo)
-            s_hi.add_(add_shi)
+    #: the exchange kernel's plan (ops/assembly_exchange.py) on a CUDA operator
+    exchange_plan = None
 
     def exchange(self, r: torch.Tensor) -> torch.Tensor:
-        """Sum duplicated slots: irregular group sums (from raw values), then
-        structured plane sweeps, then overwrite the irregular slots."""
-        sums = [r[slots].sum(-1) for slots, _, _ in self.irr_buckets]
-        r = r.clone()
-        if self.use_cross:
-            self._exchange_cross(r)
-        else:
-            if self.NP:
-                self._sweeps(self._patches(r), self.nbr, self.nbr_mask, self.S)
-            if self.NS and self.use_ssweep:
-                n1 = self.n1
-                us = self._singles(r).view(self.NS, n1, n1, n1)
-                self._sweeps(us, self.snbr, self.snbr_mask, n1)
-        if sums:
-            # ONE combined scatter for all size buckets (their dofs are disjoint)
-            out_all = torch.cat([b[1] for b in self.irr_buckets])
-            val_all = torch.cat([s[b[2]] for b, s in zip(self.irr_buckets, sums)])
-            r[out_all] = val_all
-        return r
+        """Sum duplicated slots (the assembly exchange) into a new tensor."""
+        return self.exchange_(r.clone())
+
+    def exchange_(self, r: torch.Tensor) -> torch.Tensor:
+        """The assembly exchange in place on ``r``, which the caller gives
+        up; returns the result: irregular group sums (from raw values),
+        structured plane sweeps, then the irregular slots overwritten (the
+        kernel on a CUDA float32 or float64 vector, else the torch chain)."""
+        return assembly_exchange.exchange_(self, r)
 
     # -------------------------------------------------------------- apply
     def cell_apply_raw(self, x: torch.Tensor) -> torch.Tensor:
@@ -382,7 +312,7 @@ class HybridOperator:
         smoother fuses the blend into its step (ops/chebyshev_step.py)."""
         r = spanned(CELL_APPLY, self.cell_apply_raw, spanned(APPLY_C, self.apply_c, x))
         r = spanned(APPLY_CT_FACES, self.apply_ct_faces, r)
-        r = spanned(EXCHANGE, self.exchange, r)
+        r = spanned(EXCHANGE, self.exchange_, r)
         return spanned(APPLY_CT, self.apply_ct, r), self.constrained_keep
 
     def vmult(self, x: torch.Tensor) -> torch.Tensor:

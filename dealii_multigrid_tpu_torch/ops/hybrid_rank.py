@@ -367,13 +367,14 @@ class RankHybridOperator(HybridOperator):
             r = sums.add_into(r.clone(), torch.cat(vals_))
         return r * self.sf_slave_keep
 
-    def exchange(self, r: torch.Tensor) -> torch.Tensor:
+    def exchange_(self, r: torch.Tensor) -> torch.Tensor:
+        """The exchange in place on the rank's span ``r``: the torch chain
+        with its ghost imports, whatever the device and dtype."""
         sums = None
         if self.irr_r is not None:
             em, bk = self.irr_r
             re = em.extend(r)
             sums = [(re[slots].sum(-1), out, grp) for slots, out, grp in bk]
-        r = r.clone()
         S, n1, K = self.S, self.n1, self.K
         up = self._patches(r) if self.NP else None
         us = self._singles(r).view(self.NS, n1, n1, n1) if self.NS else None

@@ -121,9 +121,9 @@ class HybridTransfer:
         ``ls_mode``)."""
         cop = self.coarse_op
         if self.ls_mode:
-            return cop.exchange(acc)
+            return cop.exchange_(acc)
         acc = cop.apply_ct_faces(acc)
-        acc = cop.exchange(acc)
+        acc = cop.exchange_(acc)
         return cop.apply_ct(acc)
 
 

@@ -148,8 +148,9 @@ def counter(name: str) -> LaunchCounter:
 
 
 def counts(counters: dict = COUNTERS) -> dict:
-    """{kernel: {dtype: launches}} (no zeros)."""
-    return {name: {k: n for k, n in c.per_dtype.items() if n} for name, c in counters.items()}
+    """{kernel: {dtype: launches}} (no zeros, no kernel without launches)."""
+    out = {name: {k: n for k, n in c.per_dtype.items() if n} for name, c in counters.items()}
+    return {name: per_dtype for name, per_dtype in out.items() if per_dtype}
 
 
 def reset() -> None:

@@ -238,7 +238,7 @@ class LSHybridLevel:
 
     def _raw_exchanged(self, u: torch.Tensor) -> torch.Tensor:
         r = spanned(CELL_APPLY, self.op.cell_apply_raw, u)
-        return spanned(EXCHANGE, self.op.exchange, r)
+        return spanned(EXCHANGE, self.op.exchange_, r)
 
     def interface_down(self, u: torch.Tensor) -> torch.Tensor:
         """Edge rows of the raw operator applied to an interior-supported

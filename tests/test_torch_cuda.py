@@ -686,3 +686,94 @@ def test_five_step_launches_per_smoothed_level_per_eager_v_cycle(graphed):
     eager(rhs)
     torch.cuda.synchronize()
     assert cs.launches.count - before == 5 * len(smoothers)
+
+
+# --- the assembly exchange, one kernel per sweep axis (ops/assembly_exchange.py) ---
+
+#: HMG-global p=4 hierarchies of the quadrant (hanging faces, cross levels,
+#: singletons, irregular groups) and the hypercube (patches only) at a
+#: reduced refinement
+EXCHANGE_HIERARCHIES = [("quadrant", 5), ("quadrant", 6), ("hypercube", 4)]
+
+
+@pytest.fixture(scope="module", params=EXCHANGE_HIERARCHIES, ids=lambda c: f"{c[0]}_r{c[1]}")
+def exchange_ops(request):
+    """{dtype: every level's operator on the card, coarsest first}."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    from dealii_multigrid_tpu_torch.mesh import generators
+    from dealii_multigrid_tpu_torch.ops.hybrid import make_hybrid_operator
+
+    dev = torch.device("cuda:0")
+    geo, r = request.param
+    seq = api.geometric_coarsening_sequence(generators.create(geo, 3, r), -1, -1)
+    levels = [api.build_level_hybrid(m, 4, dev, torch.float32) for m in seq]
+    ops = {torch.float32: [lv.op for lv in levels],
+           torch.float64: [make_hybrid_operator(lv.fmt, lv.hanging, dev, torch.float64)
+                           for lv in levels]}
+    if geo == "quadrant" and r == 6:
+        assert any(op.use_cross for op in ops[torch.float32])
+    return ops
+
+
+def exchange_input(op, seed):
+    gen = torch.Generator(device=op.device).manual_seed(seed)
+    return torch.randn(op.n_slots, generator=gen, dtype=op.dtype, device=op.device)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_exchange_kernel_is_the_eager_chain_bit_for_bit(exchange_ops, dtype):
+    from dealii_multigrid_tpu_torch.ops import assembly_exchange as ax
+
+    for l, op in enumerate(exchange_ops[dtype]):
+        raw = exchange_input(op, 21 + l)
+        want = ax.reference_(op, raw.clone())
+        before = ax.launches.count
+        got = op.exchange_(raw.clone())
+        torch.cuda.synchronize()
+        assert ax.launches.count - before == op.exchange_plan.launches
+        err = float((got - want).abs().max()) if op.n_slots else 0.0
+        assert torch.equal(got, want), (
+            f"L{l} NP={op.NP} S={op.S} NS={op.NS} cross={op.use_cross}: max_abs_err={err:.3e}")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_exchange_kernel_is_bit_repeatable(exchange_ops, dtype):
+    for l, op in enumerate(exchange_ops[dtype]):
+        raw = exchange_input(op, 31 + l)
+        assert torch.equal(op.exchange_(raw.clone()), op.exchange_(raw.clone())), f"L{l}"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_captured_exchange_replays_equal_the_eager_chain(exchange_ops, dtype):
+    """The finest level's exchange captured in a CUDA graph, in place on a
+    static buffer: each replay equals the eager chain on that input."""
+    from dealii_multigrid_tpu_torch.ops import assembly_exchange as ax
+
+    op = exchange_ops[dtype][-1]
+    buf = exchange_input(op, 40)
+    op.exchange_(buf.clone())  # build and initialise outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        op.exchange_(buf)
+    for seed in (41, 42):
+        raw = exchange_input(op, seed)
+        buf.copy_(raw)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(buf, ax.reference_(op, raw.clone()))
+
+
+def test_bfloat16_levels_on_the_card_take_the_torch_chain(cuda):
+    from dealii_multigrid_tpu_torch.mesh import generators
+    from dealii_multigrid_tpu_torch.ops import assembly_exchange as ax
+
+    lv = api.build_level_hybrid(generators.create("quadrant", 3, 4), 4, cuda, torch.bfloat16)
+    raw = exchange_input(lv.op, 50)
+    assert not ax.takes_kernel(raw)
+    before = ax.launches.count
+    got = lv.op.exchange_(raw.clone())
+    torch.cuda.synchronize()
+    assert ax.launches.count == before
+    assert torch.equal(got, ax.reference_(lv.op, raw.clone()))
